@@ -18,11 +18,26 @@ Phases, each of which fails the run with a non-zero exit:
   5. train ``gaussian_splatting.yaml`` for 20 steps through the port's own
      ``launch.main`` (512^2, batch 4, tile 32, capacity 651,024, 4096
      initial points, fake SDS guidance) with every launch counter zeroed
-     just before and read just after: every kernel must have launched and
-     every logged loss must be finite; then hold the kernels again and time
-     them at the trained field's shapes (one view of a training batch);
-  6. print the per-kernel JSON line (launches from the training run, times
-     at its shapes), then ``{"ok": true, ...}`` last.
+     just before and read just after: K1-K4 must have launched and every
+     logged loss must be finite; then hold K1-K4 again and time them at the
+     trained field's shapes (one view of a training batch);
+  6. Stable Diffusion guidance: write a seeded random-init checkpoint
+     directory with the published stabilityai/stable-diffusion-2-1-base
+     UNet and VAE architectures (diffusers layout, f32 .bin) under
+     outputs/chip_smoke/; hold K5 (flash attention) against its plain
+     version at the UNet's self-attention shapes, (40, 4096, 64) and (80,
+     1024, 64) in bf16 (to 2^-6 of max|plain|, two bf16 ulps) and (16,
+     1024, 64) in f32 (2e-5), and the guidance on a tiny random directory
+     on the card against its CPU run; train the YAML with its own
+     ``stable-diffusion-guidance`` pointed at that directory for 10 steps
+     (bf16 UNet and VAE, the CFG batch of 8), counters zeroed just before:
+     every loss finite, grad_norm > 0, K1-K4 launched and K5 launched
+     exactly 5 times per step at each of the two shapes; then time K5
+     there beside its plain version, ``scaled_dot_product_attention`` and
+     its bound;
+  7. print the per-kernel JSON line (launches from the training runs, times
+     at their shapes; one K5 row per shape), then ``{"ok": true, ...}``
+     last.
 
 Nothing is caught and passed over: the first failure ends the run.
 """
@@ -41,10 +56,18 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PORT_CONFIG = os.path.join(ROOT, "threestudio_3dgs_tpu_torch", "configs", "gaussian_splatting.yaml")
 RUN_DIR = os.path.join(ROOT, "outputs", "chip_smoke")
+SD_DIR = os.path.join(RUN_DIR, "sd21-base-random")
+SD_STEPS = 10
+# K5's shapes on the main path (SD 2.1-base at 512^2, CFG batch 8: 5 heads of
+# 4096 tokens, 10 of 1024) and its launches at each per UNet call
+K5_SHAPES = ((40, 4096), (80, 1024))
+K5_PER_SHAPE_PER_UNET_CALL = 5
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor) FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 (non-tensor) and
+# bf16 dense tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 
 # floating-point operations per evaluated (pixel, pair), counted from the
 # kernels' bodies in csrc/blend.cu for C blended channels and F = 6 + C
@@ -75,7 +98,14 @@ KERNELS = {
         source="threestudio_3dgs_tpu_torch/csrc/expand.cu",
         replaces="threestudio_3dgs_tpu/ops/rasterizer/expand_pallas.py:585",
     ),
+    "flash_attention_forward": dict(
+        source="threestudio_3dgs_tpu_torch/csrc/flash_attention.cu",
+        replaces="threestudio_3dgs_tpu/ops/flash_attention.py:57",
+    ),
 }
+# K5 check shapes (bh, n, dtype name): the UNet's two self-attention shapes
+# in bf16 and one f32 shape; limits from profiling.k5_tolerance
+K5_CHECKS = ((40, 4096, "bfloat16"), (80, 1024, "bfloat16"), (16, 1024, "float32"))
 
 
 def log(msg):
@@ -322,6 +352,7 @@ def bench_render(torch, scene, native):
 
 def train(torch, native):
     from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
 
     argv = [
         "--config", PORT_CONFIG, "--train",
@@ -342,7 +373,7 @@ def train(torch, native):
         bad = [k for k, v in row.items() if k.startswith("train/") and not np.isfinite(v)]
         if bad:
             fail(f"non-finite losses at step {row['step']}: {bad}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in RASTER_KERNELS if launches[k] == 0]
     if missing:
         fail(f"kernels never launched by the training run: {missing}")
     gauss = trainer.state.gauss
@@ -374,6 +405,148 @@ def trained_scene(torch, trainer):
         return dict(means=p.xyz, scales=gf.get_scaling(p), quats=p.rotation,
                     opac=gf.get_opacity(p)[:, 0], colors=colors, cam=cam,
                     alive=gauss.alive, tile_size=trainer.system.renderer.cfg.tile_size)
+
+
+def write_sd_checkpoint(torch):
+    from threestudio_3dgs_tpu_torch.diffusion.convert import write_random_checkpoint
+
+    t0 = time.perf_counter()
+    sizes = write_random_checkpoint(SD_DIR, seed=0, device="cuda")
+    total = sum(sizes.values())
+    log(f"wrote SD 2.1-base random checkpoint (seed 0, f32) in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{os.path.relpath(p, ROOT)} {n / 2**20:.1f} MiB" for p, n in sizes.items())
+        + f"; {total / 2**30:.2f} GiB")
+
+
+def check_flash(torch):
+    """K5 against its plain version at each K5_CHECKS shape.  Returns the
+    absolute error by (bh, n) of the bf16 checks."""
+    from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
+    from threestudio_3dgs_tpu_torch.utils.profiling import k5_inputs, k5_tolerance
+
+    errs = {}
+    with torch.no_grad():
+        for i, (bh, n, dtype) in enumerate(K5_CHECKS):
+            q, k, v = k5_inputs(bh, n, getattr(torch, dtype), seed=10 + i)
+            got = fa.flash_bhnd_cuda(q, k, v, 0.125)
+            want = fa.flash_bhnd_torch(q, k, v, 0.125)
+            err = float((got.float() - want.float()).abs().max())
+            rule = "max |diff|; limit 2^-6 x max|plain|" if dtype == "bfloat16" else "max |diff|"
+            report(f"k5 {bh}x{n}x64 {dtype}", "flash_attention", err, k5_tolerance(want), rule)
+            if dtype == "bfloat16":
+                errs[(bh, n)] = err
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_sd_small(torch):
+    """The SD guidance on a tiny random directory (head dim 64, so its
+    1024-token self-attention goes through K5) on the card against the same
+    call on the CPU, f32 weights, the same draws: the loss and its gradient
+    w.r.t. rgb to 1e-4 relative (cuDNN and the CPU sum in other orders)."""
+    from threestudio_3dgs_tpu_torch.utils.profiling import TINY_SD_K5_LAUNCHES, tiny_sd_card_vs_cpu
+
+    results = tiny_sd_card_vs_cpu(os.path.join(RUN_DIR, "sd-tiny"))
+    (loss_c, grad_c, k5_c), (loss_p, grad_p, _) = results["cuda"], results["cpu"]
+    if k5_c != TINY_SD_K5_LAUNCHES or not bool(torch.isfinite(grad_c).all()):
+        fail(f"tiny SD guidance on the card: {k5_c} K5 launches (want {TINY_SD_K5_LAUNCHES}), "
+             f"finite grad {bool(torch.isfinite(grad_c).all())}")
+    report("sd-tiny", "sd_loss", abs(loss_c - loss_p) / abs(loss_p), 1e-4, "card vs CPU, relative")
+    report("sd-tiny", "sd_grad_rgb", float((grad_c - grad_p).norm() / grad_p.norm()), 1e-4,
+           "card vs CPU, relative L2")
+
+
+def time_flash(torch):
+    """K5 at the two bf16 UNet shapes: its time, its plain version's,
+    scaled_dot_product_attention's, and its bound (each input read once and
+    the output written once at 3.35 TB/s; 4 bh n^2 d FLOPs at the bf16
+    tensor-core peak).  Returns the rows by (bh, n)."""
+    import torch.nn.functional as F
+
+    from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
+    from threestudio_3dgs_tpu_torch.utils.profiling import k5_inputs
+
+    rows = {}
+    with torch.no_grad():
+        for bh, n in K5_SHAPES:
+            q, k, v = k5_inputs(bh, n, torch.bfloat16, seed=20)
+            d = q.shape[-1]
+            b_ms = 4 * q.numel() * q.element_size() / PEAK_BYTES_PER_S * 1e3
+            o_ms = 4 * bh * n * n * d / PEAK_BF16_TC_FLOPS * 1e3
+            rows[(bh, n)] = dict(
+                ms=time_ms(torch, lambda: fa.flash_bhnd_cuda(q, k, v, 0.125), 10),
+                plain_ms=time_ms(torch, lambda: fa.flash_bhnd_torch(q, k, v, 0.125), 3),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], scale=0.125), 20),
+                bound=(max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"),
+            )
+            r = rows[(bh, n)]
+            log(f"time  flash_attention ({bh}, {n}, {d}) bfloat16: {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  "
+                f"library (scaled_dot_product_attention) {r['library_ms']:.4f} ms")
+            del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_sd(torch, native):
+    """SD_STEPS steps of the YAML with its own stable-diffusion-guidance on
+    the random SD 2.1-base directory."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.ops.flash_attention import HEAD_DIM, shape_tag
+    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+
+    argv = [
+        "--config", PORT_CONFIG, "--train",
+        f"trainer.max_steps={SD_STEPS}", "trainer.val_check_interval=0",
+        f"system.guidance.pretrained_model_name_or_path={SD_DIR}",
+        f"exp_root_dir={os.path.join(RUN_DIR, 'sd')}",
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    trainer = launch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    shape_launches = {tag: c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
+                      if fn == "flash_attention_forward"}
+    rows = trainer.metrics_log
+    if len(rows) != SD_STEPS:
+        fail(f"expected {SD_STEPS} logged SD steps, got {len(rows)}")
+    for row in rows:
+        bad = [k for k, v in row.items() if k.startswith("train/") and not np.isfinite(v)]
+        if bad:
+            fail(f"non-finite losses at SD step {row['step']}: {bad}")
+        if not row["train/grad_norm"] > 0:
+            fail(f"SD step {row['step']}: grad_norm {row['train/grad_norm']} is not > 0")
+    missing = [k for k in RASTER_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched by the SD training run: {missing}")
+    want = {shape_tag(bh, n, HEAD_DIM): K5_PER_SHAPE_PER_UNET_CALL * SD_STEPS
+            for bh, n in K5_SHAPES}
+    if shape_launches != want or launches["flash_attention_forward"] != sum(want.values()):
+        fail(f"K5 launched {launches['flash_attention_forward']} times in {SD_STEPS} SD steps, "
+             f"by shape {shape_launches}; want {want}")
+    guidance = trainer.system.guidance
+    if guidance.unet is None or guidance.vae_encoder is None:
+        fail("the SD guidance did not load the checkpoint directory")
+    walls = [row["wall_s"] for row in rows]
+    steps = [b - a for a, b in zip(walls, walls[1:])]  # steps 2..SD_STEPS
+    cfg = trainer.cfg
+    log(f"train SD: {SD_STEPS} steps of gaussian_splatting.yaml with stable-diffusion-guidance "
+        f"(SD 2.1-base random weights, bf16 UNet and VAE, CFG batch {2 * cfg.data['batch_size']}) "
+        f"at {cfg.data['height']}x{cfg.data['width']}, batch {cfg.data['batch_size']}: "
+        f"{wall:.2f} s wall incl. loading; median step (steps 2-{SD_STEPS}) "
+        f"{statistics.median(steps) * 1e3:.1f} ms (min {min(steps) * 1e3:.1f}, max "
+        f"{max(steps) * 1e3:.1f}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last loss_sds "
+        f"{rows[-1]['train/loss_sds']:.6g}, grad_norm {rows[-1]['train/grad_norm']:.6g}; "
+        f"launches {launches}, K5 by shape {shape_launches}")
+    del trainer, guidance
+    torch.cuda.empty_cache()
+    return launches, {shape: shape_launches[shape_tag(*shape, HEAD_DIM)] for shape in K5_SHAPES}
 
 
 def main():
@@ -422,17 +595,32 @@ def main():
     errs["train"] = check_kernels(torch, train_inp, "train")
     log("train-shape timing (the main path's shapes; these go in the kernels line):")
     timing = time_kernels(torch, train_inp)
+    del trainer, train_inp
+    torch.cuda.empty_cache()
 
+    write_sd_checkpoint(torch)
+    k5_errs = check_flash(torch)
+    check_sd_small(torch)
+    sd_launches, k5_launches = train_sd(torch, native)
+    if sd_launches["flash_attention_forward"] != sum(k5_launches.values()):
+        fail("K5's launches by shape do not add up to its launches")
+    k5_times = time_flash(torch)
+
+    # (row name, kernel, launches, max abs error, timings): K1-K4 at the
+    # trained view, K5 once per main-path shape
+    rows = [(name, name, train_launches[name], max(e[name] for e in errs.values()), timing[name])
+            for name in KERNELS if name != "flash_attention_forward"]
+    rows += [(f"flash_attention_forward@{bh}x{n}x64", "flash_attention_forward",
+              k5_launches[(bh, n)], k5_errs[(bh, n)], k5_times[(bh, n)]) for bh, n in K5_SHAPES]
     kernels = []
-    for name, meta in KERNELS.items():
-        t = timing[name]
+    for row_name, name, launches, err, t in rows:
         kernels.append({
-            "name": name,
+            "name": row_name,
             "route": "cuda",
-            "source": meta["source"],
-            "replaces": meta["replaces"],
-            "launches": train_launches[name],
-            "max_abs_err": max(e[name] for e in errs.values()),
+            "source": KERNELS[name]["source"],
+            "replaces": KERNELS[name]["replaces"],
+            "launches": launches,
+            "max_abs_err": err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],

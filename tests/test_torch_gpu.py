@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, each against its plain torch version
-on the same inputs, and the training step through them.
+on the same inputs, the training step through them, and the SD guidance on
+the card against its CPU run.
 
 Marked ``gpu``: without a CUDA device every test skips (decided inside the
 ``cuda`` fixture, never at import).  This file imports neither JAX nor the
@@ -15,11 +16,13 @@ import pytest
 import torch
 
 from threestudio_3dgs_tpu_torch.ops import camera as pcam
+from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
 from threestudio_3dgs_tpu_torch.ops import native
 from threestudio_3dgs_tpu_torch.ops.rasterizer import RasterizeConfig, rasterize
 from threestudio_3dgs_tpu_torch.ops.rasterizer import binning, blend, expand, segsum
 from threestudio_3dgs_tpu_torch.ops.rasterizer.preprocess import project_gaussians
-from threestudio_3dgs_tpu_torch.utils.profiling import lookat_c2w
+from threestudio_3dgs_tpu_torch.utils.profiling import (
+    RASTER_KERNELS, TINY_SD_K5_LAUNCHES, k5_inputs, k5_tolerance, lookat_c2w, tiny_sd_card_vs_cpu)
 
 pytestmark = pytest.mark.gpu
 
@@ -128,7 +131,7 @@ def test_rasterize_on_card_matches_cpu(cuda):
         grads = torch.autograd.grad(loss, leaves)
         results.append((out, grads, dict(native.LAUNCHES)))
     (out_c, g_c, launches), (out_p, g_p, no_launches) = results
-    assert all(v == 1 for v in launches.values()), launches
+    assert all(launches[k] == 1 for k in RASTER_KERNELS), launches
     assert not any(no_launches.values()), no_launches
     assert out_c["n_pairs"] == out_p["n_pairs"] and out_c["n_dropped"] == 0
     for name in ("image", "alpha", "depth"):
@@ -152,4 +155,47 @@ def test_training_steps_on_card(cuda, tmp_path):
     ])
     assert trainer.state.gauss.params.xyz.is_cuda
     assert all(np.isfinite(row["train/loss_total"]) for row in trainer.metrics_log)
-    assert all(native.LAUNCHES[k] == 4 for k in native.LAUNCHES), native.LAUNCHES
+    assert all(native.LAUNCHES[k] == 4 for k in RASTER_KERNELS), native.LAUNCHES
+    assert native.LAUNCHES["flash_attention_forward"] == 0  # fake guidance: no UNet
+
+
+@pytest.mark.parametrize("bh,n", [(40, 4096), (80, 1024)])
+@torch.no_grad()
+def test_flash_attention_kernel_matches_plain(cuda, bh, n):
+    """K5 at the SD 2.1-base UNet's self-attention shapes (CFG batch 8) in
+    bf16, to 2^-6 of max|plain| (two bf16 ulps at the largest output); and
+    f32 at 2e-5 (k5_tolerance)."""
+    q, k, v = k5_inputs(bh, n, torch.bfloat16, seed=0)
+    got = fa.flash_bhnd(q, k, v, 0.125)
+    want = fa.flash_bhnd_torch(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) <= k5_tolerance(want)
+    q, k, v = k5_inputs(8, n // 4, torch.float32, seed=1)
+    got = fa.flash_bhnd(q, k, v, 0.125)
+    want = fa.flash_bhnd_torch(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= k5_tolerance(want)
+
+
+@torch.no_grad()
+def test_flash_attention_kernel_deterministic(cuda):
+    q, k, v = k5_inputs(40, 4096, torch.bfloat16, seed=2)
+    native.reset_launches()
+    a = fa.flash_bhnd(q, k, v, 0.125)
+    b = fa.flash_bhnd(q, k, v, 0.125)
+    assert native.LAUNCHES["flash_attention_forward"] == 2
+    assert torch.equal(a, b)
+
+
+def test_sd_guidance_on_card_matches_cpu(cuda, tmp_path):
+    """A tiny random SD directory: the guidance's loss and its gradient
+    w.r.t. rgb on the card against the same call on the CPU, f32 weights,
+    the same draws (1e-4 relative; cuDNN and the CPU sum in other orders).
+    Its level-0 self-attention (32^2 = 1024 latent tokens, head dim 64)
+    goes through K5 on the card and through the einsum on the CPU."""
+    results = tiny_sd_card_vs_cpu(str(tmp_path))
+    (loss_c, grad_c, k5_card), (loss_p, grad_p, k5_cpu) = results["cuda"], results["cpu"]
+    assert (k5_card, k5_cpu) == (TINY_SD_K5_LAUNCHES, 0)
+    assert np.isfinite(loss_c) and loss_c == pytest.approx(loss_p, rel=1e-4)
+    assert float((grad_c - grad_p).norm() / grad_p.norm()) <= 1e-4

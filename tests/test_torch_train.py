@@ -168,16 +168,29 @@ def test_checkpoint_written(trained):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """One CPU training step through the port's launcher in a fresh
-    interpreter leaves neither jax nor the JAX package in sys.modules."""
+    """In a fresh interpreter, importing every port module (the diffusion
+    stack and K5's module included) and training one CPU step through the
+    launcher, with the YAML's own stable-diffusion-guidance on a tiny
+    random checkpoint directory, leaves neither jax nor the JAX package in
+    sys.modules."""
     code = (
         "import sys\n"
         "from threestudio_3dgs_tpu_torch import launch\n"
+        "from threestudio_3dgs_tpu_torch.diffusion import convert, unet, vae\n"
+        "from threestudio_3dgs_tpu_torch.guidance import stable_diffusion\n"
+        "from threestudio_3dgs_tpu_torch.ops import flash_attention, native\n"
+        "from threestudio_3dgs_tpu_torch.utils import profiling\n"
+        "ucfg = unet.UNet2DConditionConfig(block_out_channels=(32, 64), "
+        "attention_head_dim=(2, 4), down_block_types=('CrossAttnDownBlock2D', 'DownBlock2D'), "
+        "up_block_types=('UpBlock2D', 'CrossAttnUpBlock2D'), norm_groups=8)\n"
+        "vcfg = vae.AutoencoderKLConfig(block_out_channels=(16, 32), norm_groups=8)\n"
+        f"convert.write_random_checkpoint({str(tmp_path / 'sd')!r}, ucfg, vcfg, device='cpu')\n"
         f"launch.main(['--config', {PORT_CONFIG!r}, '--train', '--device', 'cpu', "
         f"'exp_root_dir={tmp_path}', 'trainer.max_steps=1', 'trainer.val_check_interval=0', "
         "'data.width=32', 'data.height=32', 'data.batch_size=1', "
         "'system.geometry.init_num_pts=64', 'system.geometry.capacity=128', "
-        "'system.renderer.tile_size=16', 'system.guidance_type=fake-sds-guidance'])\n"
+        "'system.renderer.tile_size=16', "
+        f"'system.guidance.pretrained_model_name_or_path={tmp_path / 'sd'}'])\n"
         "bad = [m for m in ('jax', 'jaxlib', 'threestudio_3dgs_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ISOLATED')\n"
@@ -187,7 +200,7 @@ def test_port_imports_no_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED" in res.stdout
-    assert "train/loss_total" in res.stdout
+    assert "train/loss_sds" in res.stdout
 
 
 def test_launch_refuses_cpu_fallback(monkeypatch):

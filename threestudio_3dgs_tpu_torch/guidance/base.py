@@ -3,9 +3,14 @@
 
 The guidance contract: guidance(rgb (B, H, W, 3), prompt_utils, batch) ->
 {"loss_sds": ..., ...}; every loss_* is weighted by the matching lambda_*
-in the system config.  The prompt processor carries the prompt text and a
-deterministic text-derived embedding; real CLIP encoding arrives with the
-Stable Diffusion guidance (ROADMAP.md, queue 1, item 5)."""
+in the system config.  The prompt processor carries the prompt text and
+deterministic text-derived embeddings, seeded by the CRC32 of the text (the
+JAX package seeds from Python's per-process ``hash``); CLIP encoding waits
+until a text-encoder checkpoint is in the repository (ROADMAP.md, queue 1, item 8).
+
+View-dependent prompting (threestudio's rule): four direction-suffixed
+variants of the prompt are embedded up front, and
+``get_text_embeddings(elevation, azimuth)`` picks one per view."""
 
 from __future__ import annotations
 
@@ -38,19 +43,44 @@ class PromptProcessorConfig:
     view_dependent_prompting: bool = True
 
 
+VIEW_SUFFIXES = (", front view", ", side view", ", back view", ", overhead view")
+
+
+def text_embedding(text: str) -> np.ndarray:
+    """(77, 1024) f32 drawn from a generator seeded by the text's CRC32."""
+    rng = np.random.default_rng(zlib.crc32(text.encode("utf-8")))
+    return rng.normal(size=(77, 1024)).astype(np.float32)
+
+
 class PromptUtils:
-    """Carrier for text conditioning: the prompt and a (77, 1024) embedding
-    drawn from a generator seeded by the prompt's CRC32."""
+    """Carrier for text conditioning: the prompt's embedding and, with
+    view-dependent prompting, those of its four view variants (4, 77, 1024)."""
 
     def __init__(self, prompt: str, negative_prompt: str = "", cfg=None):
         self.prompt = prompt
         self.negative_prompt = negative_prompt
         self.cfg = cfg or PromptProcessorConfig(prompt=prompt)
-        rng = np.random.default_rng(zlib.crc32(prompt.encode("utf-8")))
-        self.text_embedding = rng.normal(size=(77, 1024)).astype(np.float32)
+        self.text_embedding = text_embedding(prompt)
+        self.view_embeddings = (
+            np.stack([text_embedding(prompt + s) for s in VIEW_SUFFIXES])
+            if self.cfg.view_dependent_prompting else None
+        )
 
-    def get_text_embeddings(self, **_):
-        return self.text_embedding
+    def view_index(self, elevation, azimuth) -> np.ndarray:
+        """(B,) int32 index into VIEW_SUFFIXES: overhead above the elevation
+        threshold, else front / back by the azimuth window, else side."""
+        azim = (np.asarray(azimuth) + 180.0) % 360.0 - 180.0  # [-180, 180)
+        front = np.abs(azim) < self.cfg.front_threshold
+        back = np.abs(azim) > 180.0 - self.cfg.back_threshold
+        idx = np.where(front, 0, np.where(back, 2, 1))
+        return np.where(np.asarray(elevation) > self.cfg.overhead_threshold, 3, idx).astype(np.int32)
+
+    def get_text_embeddings(self, elevation=None, azimuth=None, **_):
+        """No angles: the prompt's embedding (77, D).  With per-view
+        elevation and azimuth (B,) in degrees: (B, 77, D)."""
+        if elevation is None or azimuth is None or self.view_embeddings is None:
+            return self.text_embedding
+        return self.view_embeddings[self.view_index(elevation, azimuth)]
 
 
 @register("dummy-prompt-processor")

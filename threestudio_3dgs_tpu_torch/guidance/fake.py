@@ -29,7 +29,8 @@ class FakeGuidanceConfig:
 class FakeSDSGuidance(BaseGuidance):
     Config = FakeGuidanceConfig
 
-    def __init__(self, cfg=None, **kwargs):
+    def __init__(self, cfg=None, device=None, **kwargs):
+        # device: unused, the analytic denoiser runs wherever rgb lies
         if cfg is None:
             cfg = FakeGuidanceConfig(**kwargs)
         elif isinstance(cfg, dict):

@@ -54,14 +54,21 @@ def sds_loss(
     sched: dict,
     cfg: SDSConfig,
     alphas_cumprod: torch.Tensor,
+    t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, dict]:
+    """``t`` and ``noise`` are drawn from ``generator`` unless given (tests
+    feed the JAX package's draws)."""
     b = latents.shape[0]
     device = latents.device
-    t = torch.randint(sched["min_step"], sched["max_step"] + 1, (b,),
-                      generator=generator, device=generator.device).to(device)
+    if t is None:
+        t = torch.randint(sched["min_step"], sched["max_step"] + 1, (b,),
+                          generator=generator, device=generator.device)
+    t = t.to(device)
     alpha_bar = alphas_cumprod.to(device)[t].reshape((b,) + (1,) * (latents.dim() - 1))
-    noise = torch.randn(latents.shape, generator=generator,
-                        device=generator.device).to(device)
+    if noise is None:
+        noise = torch.randn(latents.shape, generator=generator, device=generator.device)
+    noise = noise.to(device)
     noisy = torch.sqrt(alpha_bar) * latents + torch.sqrt(1.0 - alpha_bar) * noise
 
     eps_uncond, eps_cond = denoise_fn(noisy.detach(), t)

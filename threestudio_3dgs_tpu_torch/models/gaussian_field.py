@@ -229,7 +229,7 @@ def init_state(cfg: GaussianFieldConfig, seed: int = 0, device="cuda") -> Gaussi
     if cfg.geometry_convert_from:
         raise NotImplementedError(
             f"geometry_convert_from={cfg.geometry_convert_from!r} is not ported yet "
-            "(ROADMAP.md, queue 1, item 4)"
+            "(ROADMAP.md, queue 1, item 7)"
         )
     xyz, colors = random_sphere_pcd(cfg, seed)
     params, alive = params_from_pcd(xyz, colors, cfg, device)

@@ -1,0 +1,112 @@
+"""Flash-attention forward for the diffusion UNet: the CUDA kernel K5 and its
+plain torch twin.
+
+Port of the JAX package's ``ops/flash_attention.py``.  ``_flash_bhnd``, its
+Pallas kernel, is replaced by ``csrc/flash_attention.cu``: softmax(Q K^T *
+scale) V per (batch * head) in the (BH, N, D) layout, forward only, because
+the SDS denoiser runs under ``torch.no_grad`` and is never differentiated.
+``flash_bhnd`` takes the plain twin for CPU tensors and launches the kernel
+for CUDA tensors; it refuses inputs that require grad on either device.
+
+``attention`` keeps the JAX package's routing rule, with ``device.type ==
+"cuda"`` in place of ``default_backend() == "tpu"`` (the JAX rule's
+``use_flash`` and ``min_seq`` arguments have no caller here, so the rule
+takes their defaults): long self-attention goes to K5, everything else
+(cross-attention, short sequences, the CPU) to ``attention_reference``, the
+materialised einsum with an f32 softmax.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import native
+
+BQ = 256  # the TPU kernel's query rows per program; the routing rule keeps it
+HEAD_DIM = 64  # the only head dimension K5 is built for (320/5, 640/10)
+MIN_SEQ = 1024
+
+
+def attention_reference(q, k, v, scale):
+    """Materialised einsum attention with an f32 softmax, (B, N, H, D)
+    layout: the path of everything K5 does not take."""
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+    weights = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", weights, v)
+
+
+def flash_bhnd_torch(q, k, v, scale):
+    """Plain twin of K5 on (BH, N, D): the TPU kernel's arithmetic with the
+    whole row in one piece (s in f32, p rounded to the input type before
+    p . v, l from the unrounded p, o / l in the input type)."""
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (o / l).to(q.dtype)
+
+
+def shape_tag(bh, n, d) -> str:
+    """The name under which ``native.SHAPE_LAUNCHES`` counts K5 at a shape."""
+    return f"{bh}x{n}x{d}"
+
+
+def flash_bhnd_cuda(q, k, v, scale):
+    """K5 on the card: online softmax over tiles of 64 keys, one block per
+    (bh, 64 query rows)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        native.check_cuda_tensor(t, name, q.dtype, 3)
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K5 takes bf16 or f32 inputs, got {q.dtype}")
+    bh, n, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"K5 is self-attention: q, k, v shapes {q.shape}, {k.shape}, {v.shape}")
+    if d != HEAD_DIM:
+        raise ValueError(f"K5 is built for head dim {HEAD_DIM}, got {d}")
+    if bh > 65535:
+        raise ValueError(f"K5 takes at most 65535 (batch * head) rows, got {bh}")
+    out = torch.empty_like(q)
+    native.launch(
+        "flash_attention_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        bh, n, d, float(scale), int(q.dtype == torch.bfloat16), native.stream_handle(q.device),
+        shape=shape_tag(bh, n, d),
+    )
+    return out
+
+
+def flash_bhnd(q, k, v, scale):
+    """(BH, N, D) forward attention: the plain twin for CPU tensors, K5 for
+    CUDA tensors.  Forward only: raises if an input requires grad."""
+    if any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash attention is forward-only: call it under torch.no_grad()")
+    if q.device.type == "cpu":
+        return flash_bhnd_torch(q, k, v, scale)
+    return flash_bhnd_cuda(q, k, v, scale)
+
+
+def kernel_route(q_shape, k_shape, device_type: str) -> bool:
+    """The JAX package's routing rule (``attention``): long, tile-friendly
+    self-attention on the accelerator goes to the kernel."""
+    _, n, _, d = q_shape
+    m = k_shape[1]
+    return bool(
+        device_type == "cuda"
+        and n >= MIN_SEQ
+        and n == m
+        and n % min(BQ, n) == 0
+        and d % 8 == 0
+    )
+
+
+def attention(q, k, v, scale):
+    """Multi-head attention, (B, N, H, D) layout.  Calls that meet the
+    routing rule reach K5 (or raise); the rest take the einsum."""
+    if not kernel_route(q.shape, k.shape, q.device.type):
+        return attention_reference(q, k, v, scale)
+    b, n, h, d = q.shape
+
+    def heads_first(t):
+        return t.permute(0, 2, 1, 3).reshape(b * h, n, d)
+
+    out = flash_bhnd(heads_first(q), heads_first(k), heads_first(v), scale)
+    return out.reshape(b, h, n, d).permute(0, 2, 1, 3)

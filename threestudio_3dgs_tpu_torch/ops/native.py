@@ -8,7 +8,8 @@ source at once (one ``nvcc`` process per source, started together) into
 ``_build/<hash of sources and flags>/``.  Each C entry point returns
 ``cudaGetLastError()``; :func:`launch` raises if it is not zero and counts
 the launch in :data:`LAUNCHES`, the per-kernel counter that shows a run
-went through the kernel.
+went through the kernel (and in :data:`SHAPE_LAUNCHES` per shape, where the
+wrapper names the shape).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -38,20 +39,25 @@ LIBRARIES = {
     "segsum": ("segsum.cu", []),
     # exact float reachability test: no fused multiply-add contraction
     "expand": ("expand.cu", ["-fmad=false"]),
+    "flash_attention": ("flash_attention.cu", []),
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 SIGNATURES = {
     "blend_forward": ("blend", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "blend_backward": ("blend", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "segsum_monotone": ("segsum", [_P, _P, _P, _P, _LL, _I, _P]),
     "expand_bin": ("expand", [_P] * 12 + [_LL, _I, _I, _I, _P]),
+    "flash_attention_forward": ("flash_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
 }
 
 # launches per kernel entry point; reset with reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+# launches per (entry point, shape tag), for the launches a wrapper tags
+SHAPE_LAUNCHES: Dict[Tuple[str, str], int] = {}
 
 _CUDA_ERRORS = {
     1: "cudaErrorInvalidValue",
@@ -71,6 +77,7 @@ _build_log: List[str] = []
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SHAPE_LAUNCHES.clear()
 
 
 def nvcc_path() -> str:
@@ -146,13 +153,16 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch(fn: str, *args) -> None:
-    """Call one C entry point, raise on a CUDA error, count the launch."""
+def launch(fn: str, *args, shape: str = "") -> None:
+    """Call one C entry point, raise on a CUDA error, count the launch (and,
+    when ``shape`` is given, the launch at that shape)."""
     owner, _ = SIGNATURES[fn]
     err = getattr(library(owner), fn)(*args)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} ({_CUDA_ERRORS.get(err, 'see cuda_runtime_api.h')})")
     LAUNCHES[fn] += 1
+    if shape:
+        SHAPE_LAUNCHES[(fn, shape)] = SHAPE_LAUNCHES.get((fn, shape), 0) + 1
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

@@ -81,7 +81,9 @@ class BaseGaussianSystem:
             cfg.renderer, geometry=self.geometry, material=self.material,
             background=self.background,
         )
-        self.guidance = find(cfg.guidance_type)(cfg.guidance) if cfg.guidance_type else None
+        self.guidance = (
+            find(cfg.guidance_type)(cfg.guidance, device=self.device) if cfg.guidance_type else None
+        )
         self.prompt_processor = (
             find(cfg.prompt_processor_type)(cfg.prompt_processor)
             if cfg.prompt_processor_type else None

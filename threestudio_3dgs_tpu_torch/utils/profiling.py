@@ -2,14 +2,21 @@
 ``utils/profiling.py`` idea: a device trace of the hot path).
 
     python -m threestudio_3dgs_tpu_torch.utils.profiling [--steps 3] [--trace-dir DIR]
+        [--sd-dir DIR]
 
-Profiles, with ``torch.profiler`` (CPU and CUDA activities), two windows:
+Profiles, with ``torch.profiler`` (CPU and CUDA activities), these windows:
 
   * ``train``: training steps of ``configs/gaussian_splatting.yaml`` at the
     config's own shape (512^2, B=4, fake SDS guidance) after two warm-up
     steps;
   * ``render``: forward+backward ``rasterize`` of bench.py's scene (1M
-    Gaussians, 512^2, tile 32, seed 0).
+    Gaussians, 512^2, tile 32, seed 0);
+  * with ``--sd-dir``: ``train_sd``, the same steps with the YAML's own
+    stable-diffusion-guidance on that diffusers directory (a seeded random
+    SD 2.1-base one is written there first if it holds no weights), and
+    its two guidance stages alone on the step's shapes: ``sd_unet`` (one
+    UNet call on the CFG batch of 8) and ``sd_vae`` (VAE encode of the 4
+    views, forward and backward).
 
 For each window it prints the wall time per iteration (host clock around
 work that ends in a synchronise, without and with the profiler), for the
@@ -17,6 +24,9 @@ training step the host-side camera sampler's share, the device-busy share (the s
 and copy times over the window's wall time; one stream, so nothing
 overlaps), the device time per kernel family and the top kernels.  Needs
 a CUDA device.
+
+It also holds the scenes, kernel inputs and card-against-CPU checks that
+``chip_smoke.py`` and ``tests/test_torch_gpu.py`` share.
 """
 
 from __future__ import annotations
@@ -38,6 +48,13 @@ FAMILIES = [
     ("K2 blend backward", r"blend_bwd_kernel"),
     ("K3 segmented sum", r"segsum_kernel"),
     ("K4 expand", r"expand_kernel"),
+    ("K5 flash attention", r"flash_fwd_kernel"),
+    # cuDNN's NCHW <-> NHWC transposes around each convolution
+    ("layout transpose (library)", r"nchwToNhwc|nhwcToNchw"),
+    ("conv / matmul (library)", r"xmma|cudnn|[Cc]onv|gemm|cutlass|sm90_|wgrad|dgrad|fprop|nvjet"),
+    ("norm (library)", r"group_norm|layer_norm|GroupNorm|LayerNorm|[Mm]oments"
+                       r"|ComputeInternalGradients|GammaBeta"),
+    ("softmax (library)", r"[Ss]oftmax"),
     ("sort (library)", r"[Rr]adix|[Ss]ort|[Mm]erge"),
     ("scan / search (library)", r"[Ss]can|[Ss]earch|cumsum"),
     ("gather / scatter / index", r"[Ii]ndex|[Gg]ather|[Ss]catter"),
@@ -158,15 +175,89 @@ def render_step(scene: Dict[str, object]) -> Callable[[], tuple]:
     return step
 
 
-def train_step(device, run_dir: str) -> Callable[[], None]:
-    """One training step of gaussian_splatting.yaml at its own shape."""
+# the render's kernels (K1-K4), by their names in native.LAUNCHES
+RASTER_KERNELS = ("blend_forward", "blend_backward", "segsum_monotone", "expand_bin")
+
+
+def k5_inputs(bh: int, n: int, dtype: torch.dtype, seed: int, device="cuda") -> List[torch.Tensor]:
+    """q, k, v of shape (bh, n, 64), standard normal drawn in f32 from
+    ``seed`` on ``device`` and cast to ``dtype``."""
+    from ..ops.flash_attention import HEAD_DIM
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((bh, n, HEAD_DIM), generator=gen, device=device).to(dtype)
+            for _ in range(3)]
+
+
+def k5_tolerance(want: torch.Tensor) -> float:
+    """Largest |K5 - plain| accepted on the same inputs.  bf16: 2^-6 of
+    max|plain|, two bf16 ulps at the largest output (the two differ only in
+    the max that shifts p before p is rounded, and in the output's own
+    rounding; one ulp on an H100), where a kernel that skipped any one
+    64-key tile is off by more than 10x that (a CPU model of K5's
+    arithmetic in tests/test_torch_flash_attention.py).  f32: 2e-5, the
+    JAX test's."""
+    if want.dtype == torch.bfloat16:
+        return 2.0**-6 * float(want.float().abs().max())
+    return 2e-5
+
+
+# the tiny SD directory of the card-against-CPU check: head dim 64 at level
+# 0, so its 32^2 = 1024-token self-attention meets the routing rule
+TINY_SD_UNET = dict(block_out_channels=(64, 128), attention_head_dim=(1, 2), cross_attention_dim=48,
+                    down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                    up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), norm_groups=8)
+TINY_SD_VAE = dict(block_out_channels=(16, 32), norm_groups=8)
+TINY_SD_K5_LAUNCHES = 5  # 2 down + 3 up transformer blocks at level 0
+
+
+def tiny_sd_card_vs_cpu(root: str, seed: int = 0) -> Dict[str, tuple]:
+    """Write a seeded random tiny SD directory at ``root`` and run the SD
+    guidance (f32 weights) on it on the card and on the CPU with the same
+    rgb, embedding and draws.  Returns, per device ("cuda", "cpu"), the SDS
+    loss, its gradient w.r.t. rgb (on the CPU) and the K5 launches."""
+    from ..diffusion import convert, unet, vae
+    from ..guidance.stable_diffusion import StableDiffusionGuidance
+    from ..ops import native
+
+    convert.write_random_checkpoint(root, unet.UNet2DConditionConfig(**TINY_SD_UNET),
+                                    vae.AutoencoderKLConfig(**TINY_SD_VAE), seed=seed,
+                                    device="cpu")
+    rng = np.random.default_rng(seed)
+    rgb = rng.uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    emb = rng.normal(size=(77, TINY_SD_UNET["cross_attention_dim"])).astype(np.float32)
+    draws = {"t": torch.tensor([100, 800]),
+             "noise": torch.tensor(rng.normal(size=(2, 4, 32, 32)).astype(np.float32)),
+             "latent_noise": torch.tensor(rng.normal(size=(2, 4, 32, 32)).astype(np.float32))}
+
+    class Prompt:
+        def get_text_embeddings(self, elevation=None, azimuth=None):
+            return emb
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        guidance = StableDiffusionGuidance({"pretrained_model_name_or_path": root,
+                                            "half_precision_weights": False}, device=device)
+        x = torch.tensor(rgb, device=device, requires_grad=True)
+        native.reset_launches()
+        out = guidance(x, Prompt(), {}, draws=draws)
+        out["loss_sds"].backward()
+        results[device] = (float(out["loss_sds"].detach()), x.grad.cpu(),
+                           native.LAUNCHES["flash_attention_forward"])
+    return results
+
+
+def train_step(device, run_dir: str, sd_dir: str = "") -> Callable[[], None]:
+    """One training step of gaussian_splatting.yaml at its own shape, with
+    fake guidance, or with its own SD guidance on ``sd_dir``."""
     from ..trainer import Trainer
     from ..utils.config import load_config
 
     config = os.path.join(os.path.dirname(__file__), "..", "configs", "gaussian_splatting.yaml")
-    cfg = load_config(config, [
-        "system.guidance_type=fake-sds-guidance", f"exp_root_dir={run_dir}",
-        "trainer.val_check_interval=0",
+    guidance = ([f"system.guidance.pretrained_model_name_or_path={sd_dir}"] if sd_dir
+                else ["system.guidance_type=fake-sds-guidance"])
+    cfg = load_config(config, guidance + [
+        f"exp_root_dir={run_dir}", "trainer.val_check_interval=0",
     ])
     trainer = Trainer(cfg, device=device)
     trainer.state = trainer.system.init_state(cfg.seed)
@@ -181,7 +272,30 @@ def train_step(device, run_dir: str) -> Callable[[], None]:
         counter["step"] += 1
 
     step.data_batch = lambda: trainer.data.train_batch(counter["step"])
+    step.trainer = trainer
     return step
+
+
+def sd_stages(trainer) -> Dict[str, Callable[[], object]]:
+    """The SD guidance's two stages alone, at the training step's shapes:
+    one UNet call on the CFG batch (2B latents) and the VAE encode of the B
+    views with its backward."""
+    guidance = trainer.system.guidance
+    data = trainer.cfg.data
+    b, h, w = data["batch_size"], data["height"], data["width"]
+    device = trainer.device
+    gen = torch.Generator(device=device).manual_seed(0)
+    rgb = torch.rand((b, h, w, 3), generator=gen, device=device, requires_grad=True)
+    with torch.no_grad():
+        latents = guidance.encode_rgb(rgb, gen)
+    t = torch.full((b,), 500, device=device)
+    batch = trainer.data.train_batch(0)
+    emb = torch.as_tensor(trainer.system.prompt_utils.get_text_embeddings(
+        batch["elevation"], batch["azimuth"]), device=device)
+    return {
+        "sd_unet": lambda: guidance.denoiser(latents, t, emb),
+        "sd_vae": lambda: torch.autograd.grad(guidance.encode_rgb(rgb, gen).sum(), rgb),
+    }
 
 
 def main(argv: List[str] = None) -> Dict[str, Dict]:
@@ -189,15 +303,24 @@ def main(argv: List[str] = None) -> Dict[str, Dict]:
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--run-dir", default=os.path.join("outputs", "profile"))
     parser.add_argument("--trace-dir", default="", help="write chrome traces here")
+    parser.add_argument("--sd-dir", default="", help="also profile SD guidance on this directory")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
     device = torch.device("cuda")
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
+    windows = [("train", lambda: train_step(device, args.run_dir)),
+               ("render", lambda: render_step(bench_scene(device)))]
+    if args.sd_dir:
+        from ..diffusion.convert import write_random_checkpoint
+
+        if not os.path.exists(os.path.join(args.sd_dir, "unet", "diffusion_pytorch_model.bin")):
+            write_random_checkpoint(args.sd_dir, seed=0, device=device)
+        windows.append(("train_sd", lambda: train_step(device, args.run_dir, args.sd_dir)))
     results = {}
-    for name, make in (("train", lambda: train_step(device, args.run_dir)),
-                       ("render", lambda: render_step(bench_scene(device)))):
+    while windows:
+        name, make = windows.pop(0)
         fn = make()
         for _ in range(2):
             fn()
@@ -206,6 +329,8 @@ def main(argv: List[str] = None) -> Dict[str, Dict]:
         if hasattr(fn, "data_batch"):  # the host-side camera sampler alone
             results[name]["data_batch_ms"] = wall_ms(fn.data_batch, args.steps)
         print(f"[profile] {name}: {json.dumps(results[name])}", flush=True)
+        if name == "train_sd":
+            windows.extend((stage, lambda f=f: f) for stage, f in sd_stages(fn.trainer).items())
         del fn
         torch.cuda.empty_cache()
     return results
