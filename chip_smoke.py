@@ -11,17 +11,34 @@ Phases, each of which fails the run with a non-zero exit:
   3. hold every kernel of the training path (K1 blend forward, K2 blend
      backward, K3 segmented sum, K4 pair expansion) against its plain torch
      version on the card, at a small scene (tile 16) and at bench.py's
-     scene (1M Gaussians, 512^2, tile 32, seed 0);
+     scene (1M Gaussians, 512^2, tile 32, seed 0); hold K6 (the slot-only
+     expand, on no training path) exactly against its plain version on
+     both scenes' depth-ordered pair offsets (max_pairs rounded up to 512);
   4. time a forward+backward ``rasterize`` of bench.py's scene (CUDA
-     events, median of 10) with zero dropped pairs, and each kernel beside
-     its bound, its plain version and, where one exists, a library call;
+     events, median of 10) with zero dropped pairs, and each kernel (K6
+     included) beside its bound, its plain version and, where one exists,
+     a library call;
   5. train ``gaussian_splatting.yaml`` for 20 steps through the port's own
      ``launch.main`` (512^2, batch 4, tile 32, capacity 651,024, 4096
-     initial points, fake SDS guidance) with every launch counter zeroed
-     just before and read just after: K1-K4 must have launched and every
-     logged loss must be finite; then hold K1-K4 again and time them at the
-     trained field's shapes (one view of a training batch);
-  6. Stable Diffusion guidance: write a seeded random-init checkpoint
+     initial points, fake SDS guidance; the test renders follow) with every
+     launch counter zeroed just before and read just after: K1-K4 must
+     have launched and every logged loss must be finite; then hold K1-K4
+     again and time them at the trained field's shapes (one view of a
+     training batch);
+  6. full run: ``launch.main --train`` on the same YAML and width for 40
+     steps with the structural schedule brought forward (validation every
+     20 steps; prune and densify every 10 from step 10 with a zero
+     gradient threshold, so every alive row densifies; opacity reset at 20;
+     max_num 10,000, so the cap-prune at step 30 leaves exactly 10,000),
+     then the 120 test renders and the point-cloud PLY; fails unless
+     gauss_num rises after step 10, 10,000 rows are alive at the end, no
+     pair is dropped, every logged loss is finite, K1-K4 launched, the two
+     validation PNGs and the 120 test PNGs vary, and the PLY reads back
+     with 10,000 vertices; then ``--export --resume`` the last checkpoint
+     must write an OBJ with faces; prints the wall time, the median step,
+     the step times around each structural step and each structural op's
+     time on the final field (CUDA events);
+  7. Stable Diffusion guidance: write a seeded random-init checkpoint
      directory with the published stabilityai/stable-diffusion-2-1-base
      UNet and VAE architectures (diffusers layout, f32 .bin) under
      outputs/chip_smoke/; hold K5 (flash attention) against its plain
@@ -35,9 +52,9 @@ Phases, each of which fails the run with a non-zero exit:
      exactly 5 times per step at each of the two shapes; then time K5
      there beside its plain version, ``scaled_dot_product_attention`` and
      its bound;
-  7. print the per-kernel JSON line (launches from the training runs, times
-     at their shapes; one K5 row per shape), then ``{"ok": true, ...}``
-     last.
+  8. print the per-kernel JSON line (launches from the training runs, K6's
+     from its checks; times at the main path's shapes, K6's at the bench
+     scene; one K5 row per shape), then ``{"ok": true, ...}`` last.
 
 Nothing is caught and passed over: the first failure ends the run.
 """
@@ -58,6 +75,9 @@ PORT_CONFIG = os.path.join(ROOT, "threestudio_3dgs_tpu_torch", "configs", "gauss
 RUN_DIR = os.path.join(ROOT, "outputs", "chip_smoke")
 SD_DIR = os.path.join(RUN_DIR, "sd21-base-random")
 SD_STEPS = 10
+FULL_STEPS = 40
+FULL_MAX_NUM = 10000
+FULL_STRUCTURAL_STEPS = (10, 20, 30)  # densify, densify + opacity reset, cap-prune
 # K5's shapes on the main path (SD 2.1-base at 512^2, CFG batch 8: 5 heads of
 # 4096 tokens, 10 of 1024) and its launches at each per UNet call
 K5_SHAPES = ((40, 4096), (80, 1024))
@@ -101,6 +121,10 @@ KERNELS = {
     "flash_attention_forward": dict(
         source="threestudio_3dgs_tpu_torch/csrc/flash_attention.cu",
         replaces="threestudio_3dgs_tpu/ops/flash_attention.py:57",
+    ),
+    "expand_slots": dict(
+        source="threestudio_3dgs_tpu_torch/csrc/expand.cu",
+        replaces="threestudio_3dgs_tpu/ops/rasterizer/expand_pallas.py:379",
     ),
 }
 # K5 check shapes (bh, n, dtype name): the UNet's two self-attention shapes
@@ -234,6 +258,56 @@ def report(label, name, err, tol, rule):
     log(f"check {label:5s} {name:15s} err {err:.3e}  tol {tol:.1e}  [{rule}]  {'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name} disagrees with its plain version at the {label} scene")
+
+
+def slot_inputs(inp):
+    """K6's inputs from a scene's pair plan: the depth-ordered exclusive
+    offsets as int32, the pair total and max_pairs (the total rounded up to
+    512, the TPU kernel's program size)."""
+    plan = inp["plan"]
+    total = plan.n_pairs
+    return plan.offsets.int().contiguous(), total, -(-total // 512) * 512
+
+
+def check_slots(torch, native, inp, label):
+    """K6 against its plain version, exact on p < total.  Returns (max abs
+    error, launches made)."""
+    from threestudio_3dgs_tpu_torch.ops.rasterizer import expand
+
+    offsets, total, max_pairs = slot_inputs(inp)
+    before = native.LAUNCHES["expand_slots"]
+    with torch.no_grad():
+        got = expand.expand_slots_cuda(offsets, max_pairs)
+        want = expand.expand_slots_torch(offsets, max_pairs)
+        err = int((got[:total].long() - want[:total].long()).abs().max()) if total else 0
+    report(label, "expand_slots", err, 0, f"exact on p < {total} of {max_pairs}")
+    return float(err), native.LAUNCHES["expand_slots"] - before
+
+
+def time_slots(torch, inp):
+    """K6 at a scene's offsets: its time, its plain version's,
+    torch.searchsorted's, and its bound (offsets read once and the slots
+    written once, 4 B each; ceil(log2(N + 1)) comparisons per pair at the
+    f32 CUDA-core rate)."""
+    from threestudio_3dgs_tpu_torch.ops.rasterizer import expand
+
+    offsets, total, max_pairs = slot_inputs(inp)
+    n = offsets.shape[0]
+    positions = torch.arange(max_pairs, dtype=torch.int32, device="cuda")
+    b_ms = (4 * n + 4 * max_pairs) / PEAK_BYTES_PER_S * 1e3
+    o_ms = max_pairs * int(np.ceil(np.log2(n + 1))) / PEAK_F32_FLOPS * 1e3
+    with torch.no_grad():
+        row = dict(
+            ms=time_ms(torch, lambda: expand.expand_slots_cuda(offsets, max_pairs), 20),
+            plain_ms=time_ms(torch, lambda: expand.expand_slots_torch(offsets, max_pairs), 5),
+            library_ms=time_ms(torch, lambda: torch.searchsorted(
+                offsets, positions, right=True) - 1, 20),
+            bound=(max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"),
+        )
+    log(f"time  expand_slots    {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+        f"bound {row['bound'][0]:.4f} ms ({row['bound'][1]})  library (torch.searchsorted) "
+        f"{row['library_ms']:.4f} ms  [{n} offsets, {total} pairs, max_pairs {max_pairs}]")
+    return row
 
 
 def time_ms(torch, fn, iters, warmup=1):
@@ -407,6 +481,111 @@ def trained_scene(torch, trainer):
                     alive=gauss.alive, tile_size=trainer.system.renderer.cfg.tile_size)
 
 
+def read_png(path):
+    from threestudio_3dgs_tpu_torch.utils.saving import decode_png
+
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def time_structural(torch, gauss):
+    """Each structural op on the full run's final field (CUDA events, warm:
+    a run's first call of an op also loads its kernels), with the run's
+    settings: every alive row densifies (threshold 0), prune at 0.005."""
+    from threestudio_3dgs_tpu_torch.models import gaussian_field as gf
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ops = {
+        "densify": lambda: gf.densify_op(gauss, 0.0, 0.02, generator=gen),
+        "prune": lambda: gf.prune_op(gauss, 0.005),
+        "opacity reset": lambda: gf.reset_opacity_op(gauss),
+        "cap-prune": lambda: gf.cap_prune_op(gauss, FULL_MAX_NUM // 2, generator=gen),
+    }
+    times = {name: time_ms(torch, fn, 5) for name, fn in ops.items()}
+    log(f"structural ops at {gauss.n_alive} alive of {gauss.capacity}: "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in times.items()))
+
+
+def full_run(torch, native):
+    """The YAML's whole run, its structural schedule brought forward, then
+    the test renders, the PLY and the export of the last checkpoint."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.models import ply_io
+    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+
+    common = [
+        "system.guidance_type=fake-sds-guidance",
+        "system.geometry.capacity=651024",
+        f"exp_root_dir={os.path.join(RUN_DIR, 'full')}",
+    ]
+    schedule = [
+        f"trainer.max_steps={FULL_STEPS}", "trainer.val_check_interval=20",
+        "system.geometry.densify_from_iter=5", "system.geometry.densification_interval=10",
+        "system.geometry.prune_from_iter=5", "system.geometry.prune_interval=10",
+        "system.geometry.opacity_reset_interval=20",
+        "system.geometry.densify_grad_threshold=0.0",
+        f"system.geometry.max_num={FULL_MAX_NUM}",
+    ]
+    native.reset_launches()
+    t0 = time.perf_counter()
+    trainer = launch.main(["--config", PORT_CONFIG, "--train"] + common + schedule)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    rows = trainer.metrics_log
+    if len(rows) != FULL_STEPS:
+        fail(f"full run: expected {FULL_STEPS} logged steps, got {len(rows)}")
+    for row in rows:
+        bad = [k for k, v in row.items() if k.startswith("train/") and not np.isfinite(v)]
+        if bad or row["n_dropped_pairs"] != 0:
+            fail(f"full run step {row['step']}: non-finite {bad}, "
+                 f"{row['n_dropped_pairs']:.0f} dropped pairs")
+    # rows[i] is iteration i's step, logged before that step's update
+    gauss_num = [int(row["gauss_num"]) for row in rows]
+    if not gauss_num[11] > gauss_num[10]:
+        fail(f"full run: gauss_num did not rise after the densify at step 10: {gauss_num}")
+    if trainer.state.gauss.n_alive != FULL_MAX_NUM:
+        fail(f"full run: {trainer.state.gauss.n_alive} alive at the end, want {FULL_MAX_NUM}")
+    missing = [k for k in RASTER_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched by the full run: {missing}")
+    save = os.path.join(trainer.save_dir, "save")
+    pngs = [os.path.join(save, f"it{i}-0.png") for i in (20, 40)]
+    pngs += [os.path.join(save, f"it{FULL_STEPS}-test", f"{i}.png") for i in range(120)]
+    for path in pngs:
+        if not os.path.exists(path) or not read_png(path).std() > 0:
+            fail(f"full run: {path} is missing or flat")
+    ply = ply_io.read_ply_table(os.path.join(save, "point_cloud.ply"))
+    if ply["x"].shape[0] != FULL_MAX_NUM:
+        fail(f"full run: point_cloud.ply has {ply['x'].shape[0]} vertices")
+    steps_ms = [row["step_s"] * 1e3 for row in rows]
+    around = "; ".join(
+        f"step {i}: {steps_ms[i - 1]:.1f} / {steps_ms[i]:.1f} / {steps_ms[i + 1]:.1f} ms"
+        for i in FULL_STRUCTURAL_STEPS)
+    log(f"full run: {FULL_STEPS} steps of gaussian_splatting.yaml at "
+        f"{trainer.cfg.data['height']}x{trainer.cfg.data['width']}, batch "
+        f"{trainer.cfg.data['batch_size']}, then 120 test renders and the PLY: {wall:.2f} s wall "
+        f"incl. setup; median step {statistics.median(steps_ms[1:]):.1f} ms (steps 2-{FULL_STEPS}); "
+        f"before / at / after each structural step: {around}; gauss_num {gauss_num[0]} -> "
+        f"{gauss_num[10]} -> {gauss_num[11]} -> {gauss_num[21]} -> {gauss_num[31]}; "
+        f"{len(pngs)} PNGs; launches {launches}")
+
+    time_structural(torch, trainer.state.gauss)
+
+    ckpt = os.path.join(trainer.save_dir, "ckpts", "last.ckpt.npz")
+    t0 = time.perf_counter()
+    exporter = launch.main(["--config", PORT_CONFIG, "--export", "--resume", ckpt] + common)
+    obj = os.path.join(exporter.save_dir, "save", "export", "model.obj")
+    with open(obj) as f:
+        faces = sum(line.startswith("f ") for line in f)
+    if exporter.step != FULL_STEPS or faces < 1:
+        fail(f"export: step {exporter.step}, {faces} faces in {obj}")
+    log(f"export --resume {os.path.relpath(ckpt, ROOT)}: {faces} faces in "
+        f"{os.path.relpath(obj, ROOT)}, {time.perf_counter() - t0:.2f} s")
+    del trainer, exporter
+    torch.cuda.empty_cache()
+
+
 def write_sd_checkpoint(torch):
     from threestudio_3dgs_tpu_torch.diffusion.convert import write_random_checkpoint
 
@@ -578,13 +757,17 @@ def main():
     t0 = time.perf_counter()
     small = kernel_inputs(torch, small_scene(torch, cam_mod), seed=1)
     errs = {"small": check_kernels(torch, small, "small")}
+    k6_err, k6_launches = check_slots(torch, native, small, "small")
     bench = bench_scene("cuda")
     bench_inp = kernel_inputs(torch, bench, seed=2)
     errs["bench"] = check_kernels(torch, bench_inp, "bench")
+    err, launches = check_slots(torch, native, bench_inp, "bench")
+    k6_err, k6_launches = max(k6_err, err), k6_launches + launches
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     log("bench-scene timing:")
     time_kernels(torch, bench_inp)
+    k6_time = time_slots(torch, bench_inp)
     del bench_inp
     bench_render(torch, bench, native)
     del bench
@@ -598,6 +781,8 @@ def main():
     del trainer, train_inp
     torch.cuda.empty_cache()
 
+    full_run(torch, native)
+
     write_sd_checkpoint(torch)
     k5_errs = check_flash(torch)
     check_sd_small(torch)
@@ -609,9 +794,12 @@ def main():
     # (row name, kernel, launches, max abs error, timings): K1-K4 at the
     # trained view, K5 once per main-path shape
     rows = [(name, name, train_launches[name], max(e[name] for e in errs.values()), timing[name])
-            for name in KERNELS if name != "flash_attention_forward"]
+            for name in KERNELS if name not in ("flash_attention_forward", "expand_slots")]
     rows += [(f"flash_attention_forward@{bh}x{n}x64", "flash_attention_forward",
               k5_launches[(bh, n)], k5_errs[(bh, n)], k5_times[(bh, n)]) for bh, n in K5_SHAPES]
+    # K6 is on no training path: its launches are its checks', its time the
+    # bench scene's
+    rows.append(("expand_slots", "expand_slots", k6_launches, k6_err, k6_time))
     kernels = []
     for row_name, name, launches, err, t in rows:
         kernels.append({

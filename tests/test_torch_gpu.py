@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, each against its plain torch version
-on the same inputs, the training step through them, and the SD guidance on
-the card against its CPU run.
+on the same inputs, the training step through them, the structural field
+updates on the card against the CPU, and the SD guidance on the card
+against its CPU run.
 
 Marked ``gpu``: without a CUDA device every test skips (decided inside the
 ``cuda`` fixture, never at import).  This file imports neither JAX nor the
@@ -9,6 +10,7 @@ JAX package, so it runs on a machine that has only the port's dependencies:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -152,11 +154,74 @@ def test_training_steps_on_card(cuda, tmp_path):
         "data.width=128", "data.height=128", "data.batch_size=2",
         "system.geometry.init_num_pts=512", "system.geometry.capacity=2048",
         "system.guidance_type=fake-sds-guidance",
+        "data.eval_height=128", "data.eval_width=128", "data.n_test_views=4",
     ])
     assert trainer.state.gauss.params.xyz.is_cuda
     assert all(np.isfinite(row["train/loss_total"]) for row in trainer.metrics_log)
-    assert all(native.LAUNCHES[k] == 4 for k in RASTER_KERNELS), native.LAUNCHES
+    # 2 steps x 2 views, then 4 test renders (forward only: K1 and K4)
+    assert native.LAUNCHES["blend_backward"] == native.LAUNCHES["segsum_monotone"] == 4
+    assert native.LAUNCHES["blend_forward"] == native.LAUNCHES["expand_bin"] == 8
     assert native.LAUNCHES["flash_attention_forward"] == 0  # fake guidance: no UNet
+
+
+@torch.no_grad()
+def test_expand_slots_kernel_matches_plain(cuda):
+    """K6 on a scene's depth-ordered pair offsets (culled Gaussians sort to
+    an empty tail) and on offsets with a long interior run of empty
+    Gaussians: exact on every p < total."""
+    plan = kernel_inputs(make_scene(cuda), 16)[0]
+    rng = np.random.default_rng(0)
+    counts = rng.integers(0, 6, 5000)
+    counts[100:2100] = 0
+    cases = [(plan.offsets.int(), plan.n_pairs),
+             (torch.as_tensor(np.cumsum(counts) - counts, dtype=torch.int32, device=cuda),
+              int(counts.sum()))]
+    for offsets, total in cases:
+        max_pairs = -(-total // 512) * 512
+        native.reset_launches()
+        got = expand.expand_slots(offsets, max_pairs)
+        want = expand.expand_slots_torch(offsets, max_pairs)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["expand_slots"] == 1
+        assert total > 0 and torch.equal(got[:total], want[:total])
+
+
+def test_structural_ops_on_card_match_cpu(cuda):
+    """Prune, opacity reset, cap-prune and densify (clones and splits, the
+    same draws) on the card against the same ops on the CPU."""
+    from threestudio_3dgs_tpu_torch.models import gaussian_field as gf
+    from threestudio_3dgs_tpu_torch.models.convert import to_numpy
+
+    cfg = gf.GaussianFieldConfig(init_num_pts=3000, capacity=8192, sh_degree=1)
+    cpu = gf.init_state(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    cpu.xyz_grad_accum = torch.rand(cfg.capacity, generator=gen) * 0.02
+    cpu.denom = (torch.rand(cfg.capacity, generator=gen) * 3).floor()
+    cpu.params.scaling += torch.randn(cpu.params.scaling.shape, generator=gen)
+    cpu.params.opacity += torch.randn(cpu.params.opacity.shape, generator=gen) * 3
+    draws = tuple(torch.randn((cfg.capacity, 3), generator=gen) for _ in range(2))
+    scores = torch.rand(cfg.capacity, generator=gen)
+
+    def ops(state):
+        state = gf.prune_op(state, 0.05, prune_big_points=True)
+        state = gf.reset_opacity_op(state)
+        state = gf.densify_op(state, 0.004, 0.02, draws=draws)
+        return state, gf.cap_prune_op(state, 2000, draws=scores)
+
+    want = [to_numpy(s) for s in ops(cpu)]
+    card = dataclasses.replace(
+        cpu, params=gf.GaussianParams(**{k: v.to(cuda) for k, v in cpu.params.as_dict().items()}),
+        adam=gf.init_adam({k: v.to(cuda) for k, v in cpu.params.as_dict().items()}),
+        alive=cpu.alive.to(cuda), max_radii2d=cpu.max_radii2d.to(cuda),
+        xyz_grad_accum=cpu.xyz_grad_accum.to(cuda), denom=cpu.denom.to(cuda))
+    got = [to_numpy(s) for s in ops(card)]
+    assert int(want[0]["alive"].sum()) > 2000 and int(want[1]["alive"].sum()) == 2000
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["alive"], w["alive"])
+        for k, v in w["params"].items():
+            # exp, log and sigmoid (the opacity reset, the split scales) on
+            # the card and the CPU round a few ulps apart
+            np.testing.assert_allclose(g["params"][k], v, rtol=4e-6, atol=1e-6, err_msg=k)
 
 
 @pytest.mark.parametrize("bh,n", [(40, 4096), (80, 1024)])

@@ -263,6 +263,8 @@ def test_sd_training_steps_through_launch(tmp_path, with_dir):
         "data.width=64", "data.height=64", "data.batch_size=2",
         "system.geometry.init_num_pts=256", "system.geometry.capacity=1536",
         "system.renderer.tile_size=16",
+        # --train ends with the test renders: two, at the training size
+        "data.eval_height=64", "data.eval_width=64", "data.n_test_views=2",
     ] + overrides)
     guidance = trainer.system.guidance
     assert isinstance(guidance, StableDiffusionGuidance)

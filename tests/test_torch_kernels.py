@@ -1,5 +1,5 @@
 """The port's kernel modules (threestudio_3dgs_tpu_torch.ops.rasterizer:
-expand, blend, segsum) against the JAX package on the CPU.
+expand (K4 and K6), blend, segsum) against the JAX package on the CPU.
 
 Each test feeds the same numpy inputs to the JAX function (the Pallas kernel
 in interpret mode, or the JAX twin it is held against) and to the port's
@@ -8,6 +8,7 @@ The CUDA kernels themselves are held against these plain versions on the
 card (tests/test_torch_gpu.py and chip_smoke.py)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -20,6 +21,7 @@ from threestudio_3dgs_tpu.ops.rasterizer.binning import bin_gaussians as jax_bin
 from threestudio_3dgs_tpu.ops.rasterizer.expand_pallas import (
     MASK_NONE,
     expand_bin_pallas,
+    expand_slots_pallas,
 )
 from threestudio_3dgs_tpu.ops.rasterizer.preprocess import project_gaussians
 from threestudio_3dgs_tpu.ops.rasterizer.segsum_pallas import segsum_monotone_pallas
@@ -127,6 +129,56 @@ def test_expand_bin_matches_pallas(case, seed):
     # the port's sort key: (tile << 32) | depth slot
     key = (got[2].long() << 32) | got[0].long()
     np.testing.assert_array_equal(got[3].numpy(), key.numpy())
+
+
+# ---------------------------------------------------------------------------
+# K6: slot-only monotone expand
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [7, 8, 9])
+def test_expand_slots_matches_pallas(seed):
+    """Exact on every pair position p < total (test_expand_pallas's seed 7
+    and two more): the last Gaussian whose offset is <= p."""
+    offsets, _, _, _, _, max_pairs, total = random_case(seed, n=500)
+    want = np.asarray(expand_slots_pallas(offsets, max_pairs, interpret=True))
+    got = expand.expand_slots(T(offsets), max_pairs)
+    assert got.dtype == torch.int32 and got.shape == (max_pairs,)
+    np.testing.assert_array_equal(got.numpy()[:total], want[:total])
+
+
+def _scatter_max_cummax(offsets, max_pairs):
+    """tests/test_expand_pallas.py's reference slot column."""
+    n = offsets.shape[0]
+    marks = jnp.zeros(max_pairs, jnp.int32).at[jnp.asarray(offsets)].max(
+        jnp.arange(n, dtype=jnp.int32), mode="drop")
+    return np.asarray(jax.lax.cummax(marks))
+
+
+# counts with empty Gaussians leading, in the interior (runs longer than
+# the TPU kernel's 768-offset window included) and trailing; and a total
+# past max_pairs, whose last offsets are dropped
+SLOT_CASES = {
+    "leading": [0, 0, 0, 3, 1, 2, 5],
+    "interior": [2, 0, 1, 0, 0, 4] + [0] * 1000 + [3, 1],
+    "trailing": [1, 2, 3] + [0] * 50,
+    "single": [7],
+    "overflow": [300, 0, 300, 100],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLOT_CASES))
+def test_expand_slots_empty_gaussians(case):
+    counts = np.asarray(SLOT_CASES[case], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    max_pairs = 512
+    total = min(int(counts.sum()), max_pairs)
+    want = _scatter_max_cummax(offsets, max_pairs)
+    got = expand.expand_slots(T(offsets), max_pairs).numpy()
+    np.testing.assert_array_equal(got[:total], want[:total])
+    # the last i with offsets[i] <= p, by a search on the host
+    p = np.arange(total)
+    np.testing.assert_array_equal(got[:total], np.searchsorted(offsets, p, side="right") - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -250,5 +302,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     small = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         expand.expand_bin_cuda(idx, idx, idx, small, small, small, 0, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        expand.expand_slots_cuda(small, 512)
     out = blend.blend_forward(feats, ranges, 2, 2, 16, 4)
     assert out.shape == (4, 256, 5) and not out.any()

@@ -1,7 +1,7 @@
 """The port's SDS training slice against the JAX package on the CPU:
 3 training steps of gaussian_splatting.yaml in both packages from one
 initial state, state conversion, the port's isolation from JAX, and the
-parts it defers (which must raise, never skip)."""
+parts it still defers (which must raise, never skip)."""
 
 import os
 import subprocess
@@ -169,25 +169,29 @@ def test_checkpoint_written(trained):
 
 def test_port_imports_no_jax(tmp_path):
     """In a fresh interpreter, importing every port module (the diffusion
-    stack and K5's module included) and training one CPU step through the
-    launcher, with the YAML's own stable-diffusion-guidance on a tiny
-    random checkpoint directory, leaves neither jax nor the JAX package in
-    sys.modules."""
+    stack, K5's module, the eval and export modules included) and training
+    one CPU step through the launcher, with the YAML's own
+    stable-diffusion-guidance on a tiny random checkpoint directory, then
+    the test renders and the export, leaves neither jax nor the JAX package
+    in sys.modules."""
     code = (
         "import sys\n"
         "from threestudio_3dgs_tpu_torch import launch\n"
         "from threestudio_3dgs_tpu_torch.diffusion import convert, unet, vae\n"
         "from threestudio_3dgs_tpu_torch.guidance import stable_diffusion\n"
+        "from threestudio_3dgs_tpu_torch.models import decimate, exporter, mesh_extract, ply_io\n"
         "from threestudio_3dgs_tpu_torch.ops import flash_attention, native\n"
-        "from threestudio_3dgs_tpu_torch.utils import profiling\n"
+        "from threestudio_3dgs_tpu_torch.utils import ckpt, profiling, saving\n"
         "ucfg = unet.UNet2DConditionConfig(block_out_channels=(32, 64), "
         "attention_head_dim=(2, 4), down_block_types=('CrossAttnDownBlock2D', 'DownBlock2D'), "
         "up_block_types=('UpBlock2D', 'CrossAttnUpBlock2D'), norm_groups=8)\n"
         "vcfg = vae.AutoencoderKLConfig(block_out_channels=(16, 32), norm_groups=8)\n"
         f"convert.write_random_checkpoint({str(tmp_path / 'sd')!r}, ucfg, vcfg, device='cpu')\n"
-        f"launch.main(['--config', {PORT_CONFIG!r}, '--train', '--device', 'cpu', "
+        f"launch.main(['--config', {PORT_CONFIG!r}, '--train', '--export', '--device', 'cpu', "
         f"'exp_root_dir={tmp_path}', 'trainer.max_steps=1', 'trainer.val_check_interval=0', "
         "'data.width=32', 'data.height=32', 'data.batch_size=1', "
+        "'data.eval_width=32', 'data.eval_height=32', 'data.n_test_views=2', "
+        "'system.exporter.resolution=32', "
         "'system.geometry.init_num_pts=64', 'system.geometry.capacity=128', "
         "'system.renderer.tile_size=16', "
         f"'system.guidance.pretrained_model_name_or_path={tmp_path / 'sd'}'])\n"
@@ -200,7 +204,8 @@ def test_port_imports_no_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED" in res.stdout
-    assert "train/loss_sds" in res.stdout
+    for line in ("train/loss_sds", "test renders ->", "export ->"):
+        assert line in res.stdout, line
 
 
 def test_launch_refuses_cpu_fallback(monkeypatch):
@@ -211,19 +216,15 @@ def test_launch_refuses_cpu_fallback(monkeypatch):
 
 
 def test_deferred_parts_raise(tmp_path):
-    """Structural field updates and eval entry points raise and name the
-    ROADMAP item; they are never skipped."""
-    field = pgf.GaussianField(pgf.GaussianFieldConfig(
-        densify_from_iter=2, densification_interval=4, densify_until_iter=100), device="cpu")
-    state = object()
-    assert field.update_states(state, 3) == (state, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        field.update_states(state, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch.main(["--config", PORT_CONFIG, "--validate", "--device", "cpu"])
-    trainer = Trainer(load_config(PORT_CONFIG, [f"exp_root_dir={tmp_path}",
-                                                "system.guidance_type=fake-sds-guidance"]),
-                      device="cpu")
-    for name in ("validate", "test", "export", "predict"):
+    """What the port still defers raises and names the ROADMAP item: the
+    initialisations other than the random sphere (geometry_convert_from:
+    point cloud, checkpoint, shap-e / lrm prompts); never a silent fallback
+    to the random sphere."""
+    for source in ("points.ply", "last.ckpt.npz", "shap-e:a hamburger"):
+        cfg = pgf.GaussianFieldConfig(geometry_convert_from=source, init_num_pts=8, capacity=16)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(trainer, name)()
+            pgf.init_state(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        launch.main(["--config", PORT_CONFIG, "--validate", "--device", "cpu",
+                     f"exp_root_dir={tmp_path}", "system.guidance_type=fake-sds-guidance",
+                     "system.geometry_convert_from=points.ply"])

@@ -8,12 +8,14 @@ take.  Importing the package imports neither JAX nor the JAX package and
 builds nothing.
 
   ops/        math core, rasterizer (projection, binning, blend) and kernels
-  models/     fixed-capacity Gaussian field, Adam, state conversion
+  models/     fixed-capacity Gaussian field (with densify / prune), Adam,
+              state conversion, PLY I/O, mesh extraction and export
   renderers/  diff-gaussian-rasterizer
-  guidance/   SDS math and the fake SDS guidance
-  data/       random-camera sampler
-  systems/    the text-to-3D SDS training step
-  utils/      registry, config system, losses, checkpoints
+  guidance/   SDS math, the fake SDS guidance and Stable Diffusion
+  diffusion/  the UNet and VAE of the Stable Diffusion guidance
+  data/       random-camera sampler and the fixed eval circles
+  systems/    the text-to-3D SDS training step and its eval renders
+  utils/      registry, config system, losses, checkpoints, image saving
 """
 
 __version__ = "0.1.0"

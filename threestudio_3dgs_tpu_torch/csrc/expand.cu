@@ -1,4 +1,5 @@
-// Pair expansion (K4) for Hopper (sm_90a).
+// Pair expansion (K4) and the slot-only expand (K6, below) for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernels expand_bin_pallas and expand_bin_pallas_packed
 // (threestudio_3dgs_tpu/ops/rasterizer/expand_pallas.py).  For every
@@ -118,9 +119,52 @@ __global__ void expand_kernel(const long long* __restrict__ offsets,
   }
 }
 
+// Slot-only monotone expand (K6).
+//
+// Replaces the TPU kernel expand_slots_pallas
+// (threestudio_3dgs_tpu/ops/rasterizer/expand_pallas.py, kernel _kernel):
+// for every pair position p < max_pairs, the last i with offsets[i] <= p
+// (0 when there is none, N == 0 included), for monotone offsets.
+//
+// Design.  One thread per pair position binary-searches the offsets.  The
+// TPU kernel counts offsets <= p inside a 768-entry window per 512-pair
+// program on its vector unit; a search has no window, so it is right for
+// every monotone input, runs of empty Gaussians of any length included.
+//
+// Bound on the H100: bytes (the offsets read once, 4 B per output); the
+// search's ~log2(N) dependent loads per thread hit the L2 cache.
+__global__ void expand_slots_kernel(const int* __restrict__ offsets, int* __restrict__ slot_out,
+                                    long long n, long long max_pairs) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= max_pairs) return;
+  // invariant: offsets[lo] <= p or lo == 0; offsets[hi] > p or hi == n
+  long long lo = 0;
+  long long hi = n;
+  while (hi - lo > 1) {
+    const long long mid = lo + (hi - lo) / 2;
+    if ((long long)__ldg(offsets + mid) <= p) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  slot_out[p] = (int)lo;
+}
+
 }  // namespace
 
 extern "C" {
+
+// offsets (N,) i32, monotone exclusive prefix; slot (max_pairs,) i32.
+int expand_slots(const void* offsets, void* slot, long long n, long long max_pairs,
+                 void* stream) {
+  if (max_pairs == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (max_pairs + threads - 1) / threads;
+  expand_slots_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int*)offsets, (int*)slot, n, max_pairs);
+  return (int)cudaGetLastError();
+}
 
 // offsets, counts, depth_order (N,) i64 in depth order (counts already
 // clipped to the pair capacity); x0, y0, rect_w, masks (N,) i32 and cull

@@ -6,7 +6,7 @@ The guidance contract: guidance(rgb (B, H, W, 3), prompt_utils, batch) ->
 in the system config.  The prompt processor carries the prompt text and
 deterministic text-derived embeddings, seeded by the CRC32 of the text (the
 JAX package seeds from Python's per-process ``hash``); CLIP encoding waits
-until a text-encoder checkpoint is in the repository (ROADMAP.md, queue 1, item 8).
+until a text-encoder checkpoint is in the repository (ROADMAP.md, queue 1, item 6).
 
 View-dependent prompting (threestudio's rule): four direction-suffixed
 variants of the prompt are embedded up front, and

@@ -1,3 +1,5 @@
-"""Gaussian field, optimiser and cross-package state conversion."""
+"""Gaussian field, optimiser, cross-package state conversion, PLY I/O and
+the mesh exporter."""
 
 from . import gaussian_field  # noqa: F401
+from . import exporter  # noqa: F401

@@ -2,12 +2,17 @@
 ``models/gaussian_field.py``).
 
 The field lives in tensors of static capacity with an ``alive`` mask, so a
-port state compares row for row with the JAX package's.  This slice ports
-the parameters and activations, the random-sphere initialisation, the
-per-field learning rates, the Adam step and the densification statistics.
-The structural ops (densify / prune / cap-prune / opacity reset) are the
-next slice: ``update_states`` raises the first time one comes due and never
-skips one silently.
+port state compares row for row with the JAX package's.  Here: the
+parameters and activations, the random-sphere initialisation, the
+per-field learning rates, the Adam step, the densification statistics,
+the structural ops (clone / split / prune / cap-prune / opacity reset /
+SuGaR prune as masked scatters into free slots, Adam moments zeroed with
+the rows they rewrite), their interval gating and the PLY export.
+
+A structural op returns a new state and leaves the state it was given
+untouched.  Its random draws come from a ``torch.Generator``; the test-only
+``draws`` keyword replaces them (the parity tests feed the JAX package's
+draws).
 """
 
 from __future__ import annotations
@@ -20,14 +25,14 @@ import torch
 
 from ..ops import knn as knn_ops
 from ..ops import quaternion
+from ..ops.gaussian_math import inverse_sigmoid
 from ..ops.sh import num_sh_bases, rgb_to_sh
 from ..utils.config import C, parse_structured
 from ..utils.registry import register
-from .optim import AdamState, adam_update, init_adam
-
-STRUCTURAL_OPS_DEFERRED = (
-    "densify/prune/cap-prune/opacity-reset are not ported yet "
-    "(ROADMAP.md, queue 1, item 1)"
+from . import ply_io
+from .optim import (
+    AdamState, adam_update, clone_adam, init_adam, row_mask, zero_moments_field,
+    zero_moments_where,
 )
 
 PARAM_FIELDS = (
@@ -229,7 +234,7 @@ def init_state(cfg: GaussianFieldConfig, seed: int = 0, device="cuda") -> Gaussi
     if cfg.geometry_convert_from:
         raise NotImplementedError(
             f"geometry_convert_from={cfg.geometry_convert_from!r} is not ported yet "
-            "(ROADMAP.md, queue 1, item 7)"
+            "(ROADMAP.md, queue 1, item 5)"
         )
     xyz, colors = random_sphere_pcd(cfg, seed)
     params, alive = params_from_pcd(xyz, colors, cfg, device)
@@ -294,6 +299,146 @@ def accumulate_stats(state: GaussianState, radii: torch.Tensor,
     return state
 
 
+# ---------------------------------------------------------------------------
+# Structural ops (masked-scatter equivalents of clone / split / prune)
+# ---------------------------------------------------------------------------
+
+
+def _free_slot_targets(alive: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """For each row i with want[i], a distinct free slot (in ascending slot
+    order, by the rank of i among the wanted rows); CAP where there is no
+    free slot left or the row is not wanted, so the scatters drop it."""
+    cap = alive.shape[0]
+    free = torch.nonzero(~alive).squeeze(1)
+    # jnp.nonzero(size=cap, fill_value=cap): fixed length, padded with cap
+    free_slots = torch.full((cap,), cap, dtype=torch.long, device=alive.device)
+    free_slots[: free.numel()] = free
+    rank = torch.cumsum(want.long(), dim=0) - 1
+    ok = want & (rank < free.numel())
+    return torch.where(ok, free_slots[rank.clamp(0, cap - 1)], torch.full_like(rank, cap))
+
+
+def _scatter_rows(params: GaussianParams, source: GaussianParams,
+                  targets: torch.Tensor) -> GaussianParams:
+    """Every field with row targets[i] set to source[i]; targets == CAP are
+    dropped.  Returns new tensors."""
+    keep = targets < targets.shape[0]
+    rows = targets[keep]
+    out = {}
+    for k, leaf in params.as_dict().items():
+        leaf = leaf.clone()
+        leaf[rows] = getattr(source, k)[keep]
+        out[k] = leaf
+    return GaussianParams(**out)
+
+
+def _reset_stats(state: GaussianState) -> GaussianState:
+    """densification_postfix resets the accumulators of every row."""
+    zeros = lambda: torch.zeros_like(state.max_radii2d)  # noqa: E731
+    return dataclasses.replace(state, max_radii2d=zeros(), xyz_grad_accum=zeros(), denom=zeros())
+
+
+@torch.no_grad()
+def prune_op(state: GaussianState, min_opacity: float,
+             prune_big_points: bool = False) -> GaussianState:
+    """Opacity (and optionally big-point) prune; big points key off the
+    mean screen radius of the alive rows."""
+    mask = get_opacity(state.params)[:, 0] < min_opacity
+    if prune_big_points:
+        alive_f = state.alive.float()
+        mean_r = torch.sum(state.max_radii2d * alive_f) / torch.clamp_min(torch.sum(alive_f), 1.0)
+        mask = mask | (state.max_radii2d > mean_r * 3.0)
+    return dataclasses.replace(state, alive=state.alive & ~mask)
+
+
+@torch.no_grad()
+def reset_opacity_op(state: GaussianState) -> GaussianState:
+    """opacity <- logit(0.9 * sigmoid(opacity)); the opacity moments are
+    zeroed."""
+    params = dataclasses.replace(state.params,
+                                 opacity=inverse_sigmoid(get_opacity(state.params) * 0.9))
+    adam = zero_moments_field(clone_adam(state.adam), "opacity")
+    return dataclasses.replace(state, params=params, adam=adam)
+
+
+@torch.no_grad()
+def sugar_prune_op(state: GaussianState, threshold: float) -> GaussianState:
+    """Hard opacity prune at the SuGaR hand-off step."""
+    keep = get_opacity(state.params)[:, 0] >= threshold
+    return dataclasses.replace(state, alive=state.alive & keep)
+
+
+@torch.no_grad()
+def cap_prune_op(state: GaussianState, max_num: int,
+                 generator: Optional[torch.Generator] = None,
+                 draws: Optional[torch.Tensor] = None) -> GaussianState:
+    """Random prune down to max_num alive rows.  ``draws``: (CAP,) uniform
+    scores in place of the generator's."""
+    cap = state.capacity
+    device = state.alive.device
+    scores = draws
+    if scores is None:
+        scores = torch.rand((cap,), generator=generator, device=generator.device)
+    scores = torch.where(state.alive, scores.to(device), torch.full((cap,), -1.0, device=device))
+    order = torch.argsort(-scores, stable=True)  # alive rows first, random order
+    keep = torch.zeros_like(state.alive)
+    keep[order[:max_num]] = True
+    return dataclasses.replace(state, alive=state.alive & keep)
+
+
+@torch.no_grad()
+def densify_op(state: GaussianState, grad_threshold: float, split_thresh: float,
+               sphere: bool = False, generator: Optional[torch.Generator] = None,
+               draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> GaussianState:
+    """Clone + split as masked scatters, in the JAX package's order: clone
+    first; the split is decided on the pre-clone rows; each split parent is
+    replaced in place by child 1 and child 2 takes a free slot; the
+    children's scales shrink by 1 / (0.8 * 2).  The moments are zeroed at
+    the clone targets, the child-2 targets and the split parents.
+    ``draws``: the two (CAP, 3) standard normals of the split children in
+    place of the generator's."""
+    params = state.params
+    cap = state.capacity
+    grads = torch.where(state.denom > 0, state.xyz_grad_accum / state.denom,
+                        torch.zeros_like(state.denom))
+    scal = get_scaling(params, sphere)  # taken before the clone
+    scale_norm = torch.linalg.norm(scal, dim=-1)
+
+    hot = state.alive & (grads >= grad_threshold)
+    clone_mask = hot & (scale_norm <= split_thresh)
+    split_mask = hot & (scale_norm > split_thresh)
+
+    # clone: copy the row into a free slot
+    ctarget = _free_slot_targets(state.alive, clone_mask)
+    params = _scatter_rows(params, state.params, ctarget)
+    alive = state.alive | row_mask(ctarget, cap)
+
+    # split: parent -> two resampled children, positions after the clone
+    if draws is None:
+        draws = tuple(torch.randn((cap, 3), generator=generator, device=generator.device)
+                      for _ in range(2))
+    n1, n2 = (d.to(scal.device) for d in draws)
+    rot = quaternion.to_rotation_matrix(params.rotation)
+    child1_xyz = params.xyz + torch.einsum("nij,nj->ni", rot, n1 * scal)
+    child2_xyz = params.xyz + torch.einsum("nij,nj->ni", rot, n2 * scal)
+    child_scaling = torch.log(scal / (0.8 * 2))
+
+    starget = _free_slot_targets(alive, split_mask)
+    # child 2 first: it reads the parent rows before child 1 overwrites them
+    params = _scatter_rows(
+        params, dataclasses.replace(params, xyz=child2_xyz, scaling=child_scaling), starget)
+    alive = alive | row_mask(starget, cap)
+    smask = split_mask[:, None]
+    params = dataclasses.replace(
+        params,
+        xyz=torch.where(smask, child1_xyz, params.xyz),
+        scaling=torch.where(smask, child_scaling, params.scaling),
+    )
+    # the new rows (clone targets, child-2 targets) and the split parents
+    adam = zero_moments_where(clone_adam(state.adam), (alive & ~state.alive) | split_mask)
+    return _reset_stats(dataclasses.replace(state, params=params, alive=alive, adam=adam))
+
+
 @register("gaussian-splatting")
 class GaussianField:
     """Host-side wrapper: owns the config and schedules; all device state
@@ -319,10 +464,18 @@ class GaussianField:
     def color_clip(self, step: int) -> float:
         return float(C(self.cfg.color_clip, 0, step))
 
-    def update_states(self, state: GaussianState, iteration: int) -> Tuple[GaussianState, bool]:
-        """Interval gating of adaptive density control.  Returns
-        (state, changed); raises when a structural op comes due."""
+    def update_states(self, state: GaussianState, iteration: int,
+                      generator: Optional[torch.Generator] = None,
+                      draws=None) -> Tuple[GaussianState, bool]:
+        """Interval-gated adaptive density control; returns (state, changed).
+        The JAX package's order: the SuGaR prune alone at its step; at a
+        prune or densify step over the budget (n_alive >= max_num + 100) the
+        cap-prune alone; else prune (then the opacity reset when due), then
+        densify.  ``draws`` (tests only) goes to the cap-prune or densify
+        that runs."""
         cfg = self.cfg
+        if cfg.sugar_prune_at is not None and iteration == cfg.sugar_prune_at:
+            return sugar_prune_op(state, float(np.float32(cfg.sugar_prune_threshold))), True
         prune_step = (
             cfg.prune_from_iter < iteration < cfg.prune_until_iter
             and iteration % cfg.prune_interval == 0
@@ -331,9 +484,32 @@ class GaussianField:
             cfg.densify_from_iter < iteration < cfg.densify_until_iter
             and iteration % cfg.densification_interval == 0
         )
-        sugar_step = cfg.sugar_prune_at is not None and iteration == cfg.sugar_prune_at
-        if prune_step or densify_step or sugar_step:
-            raise NotImplementedError(
-                f"structural update due at step {iteration}: {STRUCTURAL_OPS_DEFERRED}"
+        if (prune_step or densify_step) and state.n_alive >= cfg.max_num + 100:
+            return cap_prune_op(state, cfg.max_num, generator, draws), True
+        changed = False
+        if prune_step:
+            min_opac = float(np.float32(C(cfg.min_opac_prune, 0, iteration)))
+            state = prune_op(state, min_opac, prune_big_points=cfg.prune_big_points)
+            if iteration % cfg.opacity_reset_interval == 0:
+                state = reset_opacity_op(state)
+            changed = True
+        if densify_step:
+            state = densify_op(
+                state,
+                float(np.float32(C(cfg.densify_grad_threshold, 0, iteration))),
+                float(np.float32(C(cfg.split_thresh, 0, iteration))),
+                sphere=cfg.sphere, generator=generator, draws=draws,
             )
-        return state, False
+            changed = True
+        return state, changed
+
+    def save_ply(self, state: GaussianState, path: str) -> None:
+        """The alive rows as a 3DGS PLY (byte-compatible with the JAX
+        package's)."""
+        alive = state.alive.cpu().numpy()
+        host = {k: v.detach().cpu().numpy()[alive] for k, v in state.params.as_dict().items()}
+        ply_io.save_gaussian_ply(
+            path, xyz=host["xyz"], features_dc=host["features_dc"],
+            features_rest=host["features_rest"], opacity=host["opacity"],
+            scaling=host["scaling"], rotation=host["rotation"],
+        )

@@ -58,3 +58,44 @@ def adam_update(
         lr = float(np.float32(lrs[k]))
         new[k] = p - lr * (m / c1) / (torch.sqrt(v / c2) + eps)
     return new
+
+
+def row_mask(rows: torch.Tensor, cap: int) -> torch.Tensor:
+    """(cap,) bool, True at each of `rows`; rows outside [0, cap) are dropped
+    (the JAX package's scatters with ``mode="drop"``)."""
+    hit = torch.zeros(cap + 1, dtype=torch.bool, device=rows.device)
+    ok = (rows >= 0) & (rows < cap)
+    hit[torch.where(ok, rows, torch.full_like(rows, cap))] = True
+    return hit[:cap]
+
+
+@torch.no_grad()
+def zero_moments_where(state: AdamState, mask: torch.Tensor) -> AdamState:
+    """Zero both moments of the rows where the (cap,) mask is set, in every
+    field, in place.  ``count`` is unchanged."""
+    for moments in (state.mu, state.nu):
+        for v in moments.values():
+            v.masked_fill_(mask.reshape((-1,) + (1,) * (v.dim() - 1)), 0.0)
+    return state
+
+
+def zero_moments_at(state: AdamState, rows: torch.Tensor) -> AdamState:
+    """Zero both moments of the given rows in every field, in place; rows out
+    of range are dropped.  ``count`` is unchanged."""
+    return zero_moments_where(state, row_mask(rows, next(iter(state.mu.values())).shape[0]))
+
+
+@torch.no_grad()
+def zero_moments_field(state: AdamState, field: str) -> AdamState:
+    """Zero all moments of one named field, in place."""
+    state.mu[field].zero_()
+    state.nu[field].zero_()
+    return state
+
+
+def clone_adam(state: AdamState) -> AdamState:
+    return AdamState(
+        mu={k: v.clone() for k, v in state.mu.items()},
+        nu={k: v.clone() for k, v in state.nu.items()},
+        count=state.count,
+    )

@@ -51,6 +51,7 @@ SIGNATURES = {
     "blend_backward": ("blend", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "segsum_monotone": ("segsum", [_P, _P, _P, _P, _LL, _I, _P]),
     "expand_bin": ("expand", [_P] * 12 + [_LL, _I, _I, _I, _P]),
+    "expand_slots": ("expand", [_P, _P, _LL, _LL, _P]),
     "flash_attention_forward": ("flash_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
 }
 

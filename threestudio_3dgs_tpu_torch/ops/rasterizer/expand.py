@@ -1,4 +1,4 @@
-"""Pair expansion: the CUDA kernel K4 and its plain torch twin.
+"""Pair expansion: the CUDA kernels K4 and K6 and their plain torch twins.
 
 Port of the JAX package's ``ops/rasterizer/expand_pallas.py``
 (``expand_bin_pallas`` / ``expand_bin_pallas_packed``, replaced here by
@@ -17,7 +17,8 @@ and the int64 tile-sort key ``(tile << 32) | slot``:
 
 Rect, cull and mask fields are indexed by ORIGINAL Gaussian id.
 ``expand_bin`` takes the plain twin for CPU tensors and launches the kernel
-for CUDA tensors.
+for CUDA tensors.  K6 (``expand_slots``, port of ``expand_slots_pallas``)
+is the slot column alone, from int32 offsets; it routes the same way.
 """
 
 from __future__ import annotations
@@ -143,3 +144,36 @@ def expand_bin(
         offsets, counts, depth_order, x0, y0, rect_w, n_pairs, grid_x,
         tile_size=tile_size, num_tiles=num_tiles, cull_fields=cull_fields, mask=mask,
     )
+
+
+# ---------------------------------------------------------------------------
+# K6: slot-only monotone expand (expand_slots_pallas).  No path of the JAX
+# package runs it; it stands alone here too.
+# ---------------------------------------------------------------------------
+
+
+def expand_slots_torch(offsets: torch.Tensor, max_pairs: int) -> torch.Tensor:
+    """Plain twin of K6: scatter-max of arange(N) at the offsets (offsets
+    >= max_pairs dropped), then a running max.  (max_pairs,) int32."""
+    n = offsets.shape[0]
+    marks = torch.zeros(max_pairs + 1, dtype=torch.long, device=offsets.device)
+    marks.scatter_reduce_(0, offsets.long().clamp(max=max_pairs),
+                          torch.arange(n, device=offsets.device), reduce="amax")
+    return torch.cummax(marks[:max_pairs], dim=0).values.int()
+
+
+def expand_slots_cuda(offsets: torch.Tensor, max_pairs: int) -> torch.Tensor:
+    """K6 on the card: one thread per pair position binary-searches the
+    offsets ((N,) int32, monotone) for the last i with offsets[i] <= p."""
+    native.check_cuda_tensor(offsets, "offsets", torch.int32, 1)
+    slot = torch.empty(max_pairs, dtype=torch.int32, device=offsets.device)
+    native.launch("expand_slots", offsets.data_ptr(), slot.data_ptr(), offsets.shape[0],
+                  max_pairs, native.stream_handle(offsets.device))
+    return slot
+
+
+def expand_slots(offsets: torch.Tensor, max_pairs: int) -> torch.Tensor:
+    """For each pair position p < max_pairs, the last Gaussian i (in depth
+    order) with offsets[i] <= p; meaningful for p < the pair total."""
+    fn = expand_slots_torch if offsets.device.type == "cpu" else expand_slots_cuda
+    return fn(offsets, max_pairs)

@@ -10,12 +10,15 @@ Scheduled hyperparameters (per-group learning rates, color_clip, loss
 lambdas, the SDS timestep window) are evaluated on the host with C() each
 step.  A (B, CAP, 2) zeros tensor that requires grad is added to the screen
 positions of every view; its gradient is the means2d side channel whose
-norms feed the densification statistics."""
+norms feed the densification statistics.  The step ends with the
+structural update when one is due (its draws from the step's generator).
+Evaluation renders views without gradients and saves validation PNGs."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import os
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -23,10 +26,7 @@ import torch
 from ..models import gaussian_field as gf
 from ..utils.config import C, C_max, parse_structured
 from ..utils.registry import find
-
-EVAL_DEFERRED = (
-    "validation/test renders and export are not ported yet (ROADMAP.md, queue 1, item 2)"
-)
+from ..utils.saving import save_image_grid
 
 
 @dataclasses.dataclass
@@ -158,12 +158,26 @@ class BaseGaussianSystem:
         logs = dict(logs)
         logs["n_dropped_pairs"] = int(out["n_dropped"].sum())
         logs["n_pairs_max"] = int((out["n_pairs"] + out["n_dropped"]).max())
-        gauss, _ = self.geometry.update_states(gauss, step)
+        gauss, _ = self.geometry.update_states(gauss, step, generator)
         return SystemState(gauss=gauss, extra_params=state.extra_params), logs
 
     # -- eval ---------------------------------------------------------------
-    def render_views(self, state, views):
-        raise NotImplementedError(EVAL_DEFERRED)
+    @torch.no_grad()
+    def render_views(self, state: SystemState, views: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """One eval render per view (the background always inverted, no
+        draws), each output brought to the host as numpy."""
+        outs = []
+        for view in views:
+            out = self.render_batch(state.gauss, view, None, None, False)
+            outs.append({k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                         for k, v in out.items()})
+        return outs
 
     def save_validation_images(self, out_dir, state, views, step, prefix=""):
-        raise NotImplementedError(EVAL_DEFERRED)
+        outs = self.render_views(state, views)
+        for view, out in zip(views, outs):
+            imgs = [out["comp_rgb"][0]]
+            if "comp_normal" in out:
+                imgs.append(out["comp_normal"][0])
+            save_image_grid(os.path.join(out_dir, f"it{step}-{prefix}{view['index']}.png"), imgs)
+        return outs

@@ -1,25 +1,32 @@
-"""Training loop (port of the JAX package's ``trainer.py``, ``fit`` only).
+"""Training loop (port of the JAX package's ``trainer.py``).
 
-Per step: a numpy camera batch from the data module, one system train
-step on the device, metrics logged to ``metrics.jsonl`` on logged steps
-(which is where the host reads the losses), and checkpoints at the
-configured interval.  Validation, test renders, export and predict are the
-next slice and raise when called."""
+Drives the train / validate / test / predict / export lifecycle:
+  * fit: per step a numpy camera batch from the data module, one system
+    train step on the device (with its structural update when due), metrics
+    logged to ``metrics.jsonl`` on logged steps (which is where the host
+    reads the losses), validation and checkpoints at their intervals;
+    ``resume`` continues from a port checkpoint at its step;
+  * validate / test: fixed-circle renders -> PNGs (-> video where imageio
+    exists), and the point-cloud PLY after the test renders;
+  * export: the exporter's PLY and mesh;
+  * predict: this system has no predict surface, so it runs the test renders.
+"""
 
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from .systems.base import EVAL_DEFERRED
-from .utils.ckpt import save_checkpoint
+from .systems.base import SystemState
+from .utils.ckpt import load_checkpoint, save_checkpoint
 from .utils.config import ExperimentConfig, dump_config
 from .utils.registry import find
+from .utils.saving import save_image_grid, save_img_sequence
 
 
 def _host(v: Any) -> float:
@@ -51,14 +58,26 @@ class Trainer:
         with open(os.path.join(self.save_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(row) + "\n")
 
-    def fit(self):
+    def load_state(self, resume: Optional[str]) -> None:
+        """The state of a port checkpoint (and its step), or a fresh init."""
+        if resume:
+            gauss, self.step = load_checkpoint(resume, self.device)
+            self.state = SystemState(gauss=gauss)
+        else:
+            self.state = self.system.init_state(self.cfg.seed)
+
+    def fit(self, resume: Optional[str] = None):
         dump_config(self.cfg, os.path.join(self.save_dir, "parsed.yaml"))
+        if resume:
+            self.load_state(resume)
+            print(f"[trainer] resumed from {resume} at step {self.step}", flush=True)
         if self.state is None:
             self.state = self.system.init_state(self.cfg.seed)
         generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         nan_streak = 0
         t_start = time.time()
         while self.step < self.max_steps:
+            t_step = time.perf_counter()
             batch = self.data.train_batch(self.step)
             self.state, logs = self.system.train_step(self.state, batch, self.step, generator)
             self.step += 1
@@ -78,6 +97,9 @@ class Trainer:
                     nan_streak = 0
                 logs_host["step"] = self.step
                 logs_host["wall_s"] = round(time.time() - t_start, 3)
+                # this step's batch, train step and structural update, up to
+                # its losses on the host (one step when every step is logged)
+                logs_host["step_s"] = round(time.perf_counter() - t_step, 6)
                 self._log_metrics(logs_host)
                 msg = " ".join(f"{k}={v:.4g}" for k, v in sorted(logs_host.items()))
                 print(f"[trainer] {msg}", flush=True)
@@ -92,16 +114,41 @@ class Trainer:
         return self.state
 
     def validate(self):
-        raise NotImplementedError(EVAL_DEFERRED)
+        views = self.data.val_views()
+        out_dir = os.path.join(self.save_dir, "save")
+        self.system.save_validation_images(out_dir, self.state, views, self.step)
+        print(f"[trainer] validation images -> {out_dir}", flush=True)
 
     def test(self):
-        raise NotImplementedError(EVAL_DEFERRED)
-
-    def export(self):
-        raise NotImplementedError(EVAL_DEFERRED)
+        views = self.data.test_views()
+        out_dir = os.path.join(self.save_dir, "save", f"it{self.step}-test")
+        os.makedirs(out_dir, exist_ok=True)
+        outs = self.system.render_views(self.state, views)
+        for view, out in zip(views, outs):
+            save_image_grid(os.path.join(out_dir, f"{view['index']}.png"), [out["comp_rgb"][0]])
+        video = save_img_sequence(
+            os.path.join(self.save_dir, "save", f"it{self.step}-test.mp4"),
+            out_dir, r"(\d+)\.png", fps=30,
+        )
+        ply_path = os.path.join(self.save_dir, "save", "point_cloud.ply")
+        self.system.geometry.save_ply(self.state.gauss, ply_path)
+        print(f"[trainer] test renders -> {out_dir}; video={video}; ply={ply_path}", flush=True)
 
     def predict(self):
-        raise NotImplementedError(EVAL_DEFERRED)
+        """This system has no predict surface (the JAX package's SuGaR
+        systems have one): it runs the test renders."""
+        print("[trainer] system has no predict path; running test()", flush=True)
+        return self.test()
+
+    def export(self):
+        exporter = find(self.system.cfg.exporter_type or "gaussian-mesh-exporter")(
+            self.system.cfg.exporter, geometry=self.system.geometry
+        )
+        out_dir = os.path.join(self.save_dir, "save", "export")
+        os.makedirs(out_dir, exist_ok=True)
+        outputs = exporter(self.state.gauss, out_dir)
+        print(f"[trainer] export -> {out_dir}: {outputs}", flush=True)
+        return outputs
 
     def save_ckpt(self, name: str):
         path = os.path.join(self.save_dir, "ckpts", name)
