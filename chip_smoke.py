@@ -7,7 +7,8 @@ NVIDIA GPU:
 Phases, each of which fails the run with a non-zero exit:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from csrc/ (one nvcc per source, all
-     started together) and print the build time and ptxas resource lines;
+     started together) and print the build time and ptxas lines (each
+     kernel's registers, shared memory and spills, and any warning);
   3. hold every kernel of the training path (K1 blend forward, K2 blend
      backward, K3 segmented sum, K4 pair expansion) against its plain torch
      version on the card, at a small scene (tile 16) and at bench.py's
@@ -43,15 +44,18 @@ Phases, each of which fails the run with a non-zero exit:
      UNet and VAE architectures (diffusers layout, f32 .bin) under
      outputs/chip_smoke/; hold K5 (flash attention) against its plain
      version at the UNet's self-attention shapes, (40, 4096, 64) and (80,
-     1024, 64) in bf16 (to 2^-6 of max|plain|, two bf16 ulps) and (16,
-     1024, 64) in f32 (2e-5), and the guidance on a tiny random directory
+     1024, 64) in bf16 (the wgmma kernel, to 2^-6 of max|plain|, two bf16
+     ulps), at (40, 4096, 64) with keys in rising norm (the running max
+     grows in every key tile) and at a ragged (40, 1000, 64) in bf16, and
+     at (16, 1024, 64) in f32 (the CUDA-core kernel, 2e-5), and the
+     guidance on a tiny random directory
      on the card against its CPU run; train the YAML with its own
      ``stable-diffusion-guidance`` pointed at that directory for 10 steps
      (bf16 UNet and VAE, the CFG batch of 8), counters zeroed just before:
      every loss finite, grad_norm > 0, K1-K4 launched and K5 launched
      exactly 5 times per step at each of the two shapes; then time K5
      there beside its plain version, ``scaled_dot_product_attention`` and
-     its bound;
+     its bound, with its TFLOP/s and share of the bound;
   8. print the per-kernel JSON line (launches from the training runs, K6's
      from its checks; times at the main path's shapes, K6's at the bench
      scene; one K5 row per shape), then ``{"ok": true, ...}`` last.
@@ -127,9 +131,14 @@ KERNELS = {
         replaces="threestudio_3dgs_tpu/ops/rasterizer/expand_pallas.py:379",
     ),
 }
-# K5 check shapes (bh, n, dtype name): the UNet's two self-attention shapes
-# in bf16 and one f32 shape; limits from profiling.k5_tolerance
-K5_CHECKS = ((40, 4096, "bfloat16"), (80, 1024, "bfloat16"), (16, 1024, "float32"))
+# K5 checks (bh, n, dtype name, keys in rising norm): the UNet's two
+# self-attention shapes in bf16 (the wgmma kernel), the first again with a
+# running max that grows in every key tile, a ragged n (a partial last key
+# and query tile), and one f32 shape (the CUDA-core kernel); limits from
+# profiling.k5_tolerance
+K5_CHECKS = ((40, 4096, "bfloat16", False), (80, 1024, "bfloat16", False),
+             (40, 4096, "bfloat16", True), (40, 1000, "bfloat16", False),
+             (16, 1024, "float32", False))
 
 
 def log(msg):
@@ -598,21 +607,24 @@ def write_sd_checkpoint(torch):
 
 
 def check_flash(torch):
-    """K5 against its plain version at each K5_CHECKS shape.  Returns the
-    absolute error by (bh, n) of the bf16 checks."""
+    """K5 against its plain version at each K5_CHECKS case.  Returns the
+    absolute error by (bh, n) of the bf16 checks on standard normal inputs."""
     from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
     from threestudio_3dgs_tpu_torch.utils.profiling import k5_inputs, k5_tolerance
 
     errs = {}
     with torch.no_grad():
-        for i, (bh, n, dtype) in enumerate(K5_CHECKS):
-            q, k, v = k5_inputs(bh, n, getattr(torch, dtype), seed=10 + i)
+        for i, (bh, n, dtype, rising) in enumerate(K5_CHECKS):
+            q, k, v = k5_inputs(bh, n, getattr(torch, dtype), seed=10 + i, rising=rising)
             got = fa.flash_bhnd_cuda(q, k, v, 0.125)
             want = fa.flash_bhnd_torch(q, k, v, 0.125)
             err = float((got.float() - want.float()).abs().max())
             rule = "max |diff|; limit 2^-6 x max|plain|" if dtype == "bfloat16" else "max |diff|"
-            report(f"k5 {bh}x{n}x64 {dtype}", "flash_attention", err, k5_tolerance(want), rule)
-            if dtype == "bfloat16":
+            if not bool(torch.isfinite(got).all()):
+                fail(f"k5 {bh}x{n}x64 {dtype}: non-finite output")
+            label = f"k5 {bh}x{n}x64 {dtype}" + (" rising max" if rising else "")
+            report(label, "flash_attention", err, k5_tolerance(want), rule)
+            if dtype == "bfloat16" and not rising:
                 errs[(bh, n)] = err
             del q, k, v, got, want
     torch.cuda.empty_cache()
@@ -640,7 +652,8 @@ def time_flash(torch):
     """K5 at the two bf16 UNet shapes: its time, its plain version's,
     scaled_dot_product_attention's, and its bound (each input read once and
     the output written once at 3.35 TB/s; 4 bh n^2 d FLOPs at the bf16
-    tensor-core peak).  Returns the rows by (bh, n)."""
+    tensor-core peak), with its achieved TFLOP/s and share of the bound.
+    Returns the rows by (bh, n)."""
     import torch.nn.functional as F
 
     from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
@@ -661,7 +674,9 @@ def time_flash(torch):
                 bound=(max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"),
             )
             r = rows[(bh, n)]
-            log(f"time  flash_attention ({bh}, {n}, {d}) bfloat16: {r['ms']:.4f} ms  plain "
+            log(f"time  flash_attention ({bh}, {n}, {d}) bfloat16: {r['ms']:.4f} ms "
+                f"({4 * bh * n * n * d / r['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{r['bound'][0] / r['ms']:.1%} of the bound)  plain "
                 f"{r['plain_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  "
                 f"library (scaled_dot_product_attention) {r['library_ms']:.4f} ms")
             del q, k, v
@@ -751,7 +766,8 @@ def main():
     native.build()
     log(f"built {sorted(native.LIBRARIES)} in {time.perf_counter() - t0:.1f} s")
     for line in native.build_log().splitlines():
-        if "Used" in line or "spill" in line or "rc " in line:
+        if any(key in line for key in ("Used", "spill", "rc ", "entry function", "arning",
+                                       "Performance")):
             log(f"  {line.strip()}")
 
     t0 = time.perf_counter()

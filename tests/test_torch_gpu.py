@@ -224,19 +224,24 @@ def test_structural_ops_on_card_match_cpu(cuda):
             np.testing.assert_allclose(g["params"][k], v, rtol=4e-6, atol=1e-6, err_msg=k)
 
 
-@pytest.mark.parametrize("bh,n", [(40, 4096), (80, 1024)])
+@pytest.mark.parametrize("bh,n,rising", [
+    (40, 4096, False), (80, 1024, False),  # the SD 2.1-base UNet's shapes (CFG batch 8)
+    (40, 4096, True),                      # the running max grows in every key tile
+    (40, 1000, False),                     # ragged: a partial last key and query tile
+    (10, 16384, False),                    # MVDream: 4 views folded, CFG batch 2 x 5 heads
+], ids=["level0", "level1", "rising_max", "ragged", "multiview"])
 @torch.no_grad()
-def test_flash_attention_kernel_matches_plain(cuda, bh, n):
-    """K5 at the SD 2.1-base UNet's self-attention shapes (CFG batch 8) in
-    bf16, to 2^-6 of max|plain| (two bf16 ulps at the largest output); and
-    f32 at 2e-5 (k5_tolerance)."""
-    q, k, v = k5_inputs(bh, n, torch.bfloat16, seed=0)
+def test_flash_attention_kernel_matches_plain(cuda, bh, n, rising):
+    """K5 in bf16 (the wgmma kernel), to 2^-6 of max|plain| (two bf16 ulps
+    at the largest output); and f32 (the CUDA-core kernel) at 2e-5
+    (k5_tolerance)."""
+    q, k, v = k5_inputs(bh, n, torch.bfloat16, seed=0, rising=rising)
     got = fa.flash_bhnd(q, k, v, 0.125)
     want = fa.flash_bhnd_torch(q, k, v, 0.125)
     torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
     assert float((got.float() - want.float()).abs().max()) <= k5_tolerance(want)
-    q, k, v = k5_inputs(8, n // 4, torch.float32, seed=1)
+    q, k, v = k5_inputs(8, n // 4, torch.float32, seed=1, rising=rising)
     got = fa.flash_bhnd(q, k, v, 0.125)
     want = fa.flash_bhnd_torch(q, k, v, 0.125)
     torch.cuda.synchronize()
@@ -251,6 +256,38 @@ def test_flash_attention_kernel_deterministic(cuda):
     b = fa.flash_bhnd(q, k, v, 0.125)
     assert native.LAUNCHES["flash_attention_forward"] == 2
     assert torch.equal(a, b)
+
+
+@torch.no_grad()
+def test_flash_attention_bh_limit_is_f32_only(cuda):
+    """The bf16 kernel walks a 1-D grid of units and takes bh past 65535;
+    the f32 kernel's grid y extent stops it there, and the wrapper raises."""
+    q, k, v = k5_inputs(70000, 64, torch.bfloat16, seed=3)
+    got = fa.flash_bhnd(q, k, v, 0.125)
+    want = fa.flash_bhnd_torch(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= k5_tolerance(want)
+    q, k, v = k5_inputs(65536, 64, torch.float32, seed=4)
+    with pytest.raises(ValueError, match="65535"):
+        fa.flash_bhnd(q, k, v, 0.125)
+
+
+@torch.no_grad()
+def test_flash_attention_bf16_other_head_dim_raises(cuda):
+    """bf16 with d = 40 (Zero123's level 0): the wrapper raises before any
+    launch, and the C entry point refuses it instead of running another
+    kernel."""
+    q, k, v = (torch.randn((8, 1024, 40), device=cuda, dtype=torch.bfloat16) for _ in range(3))
+    native.reset_launches()
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_bhnd(q, k, v, 40**-0.5)
+    assert native.LAUNCHES["flash_attention_forward"] == 0
+    out = torch.full_like(q, 7.0)
+    err = native.library("flash_attention").flash_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 8, 1024, 40, 40**-0.5, 1,
+        native.stream_handle(q.device))
+    torch.cuda.synchronize()
+    assert err == 1 and bool((out == 7.0).all())  # cudaErrorInvalidValue, nothing written
 
 
 def test_sd_guidance_on_card_matches_cpu(cuda, tmp_path):

@@ -68,6 +68,7 @@ _CUDA_ERRORS = {
     209: "cudaErrorNoKernelImageForDevice",
     700: "cudaErrorIllegalAddress",
     701: "cudaErrorLaunchOutOfResources",
+    801: "cudaErrorNotSupported",
 }
 
 _lock = threading.Lock()

@@ -48,7 +48,7 @@ FAMILIES = [
     ("K2 blend backward", r"blend_bwd_kernel"),
     ("K3 segmented sum", r"segsum_kernel"),
     ("K4 expand", r"expand_kernel"),
-    ("K5 flash attention", r"flash_fwd_kernel"),
+    ("K5 flash attention", r"flash_fwd_(wgmma|f32)"),
     # cuDNN's NCHW <-> NHWC transposes around each convolution
     ("layout transpose (library)", r"nchwToNhwc|nhwcToNchw"),
     ("conv / matmul (library)", r"xmma|cudnn|[Cc]onv|gemm|cutlass|sm90_|wgrad|dgrad|fprop|nvjet"),
@@ -179,22 +179,28 @@ def render_step(scene: Dict[str, object]) -> Callable[[], tuple]:
 RASTER_KERNELS = ("blend_forward", "blend_backward", "segsum_monotone", "expand_bin")
 
 
-def k5_inputs(bh: int, n: int, dtype: torch.dtype, seed: int, device="cuda") -> List[torch.Tensor]:
+def k5_inputs(bh: int, n: int, dtype: torch.dtype, seed: int, device="cuda",
+              rising: bool = False) -> List[torch.Tensor]:
     """q, k, v of shape (bh, n, 64), standard normal drawn in f32 from
-    ``seed`` on ``device`` and cast to ``dtype``."""
+    ``seed`` on ``device`` and cast to ``dtype``.  ``rising``: key j is
+    scaled by 0.1 + 9.9 j / (n - 1), so the keys come in rising norm, the
+    logits (at scale 1/8) span about +-30 and a row's running max grows
+    from key tile to key tile (every tile rescales)."""
     from ..ops.flash_attention import HEAD_DIM
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn((bh, n, HEAD_DIM), generator=gen, device=device).to(dtype)
-            for _ in range(3)]
+    q, k, v = (torch.randn((bh, n, HEAD_DIM), generator=gen, device=device) for _ in range(3))
+    if rising:
+        k = k * torch.linspace(0.1, 10.0, n, device=device)[:, None]
+    return [t.to(dtype) for t in (q, k, v)]
 
 
 def k5_tolerance(want: torch.Tensor) -> float:
     """Largest |K5 - plain| accepted on the same inputs.  bf16: 2^-6 of
     max|plain|, two bf16 ulps at the largest output (the two differ only in
     the max that shifts p before p is rounded, and in the output's own
-    rounding; one ulp on an H100), where a kernel that skipped any one
-    64-key tile is off by more than 10x that (a CPU model of K5's
+    rounding; one ulp on an H100), where a kernel that skipped any one key
+    tile (64 or 128 keys) is off by more than 10x that (a CPU model of K5's
     arithmetic in tests/test_torch_flash_attention.py).  f32: 2e-5, the
     JAX test's."""
     if want.dtype == torch.bfloat16:
