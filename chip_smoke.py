@@ -18,7 +18,10 @@ Phases, each of which fails the run with a non-zero exit:
   4. time a forward+backward ``rasterize`` of bench.py's scene (CUDA
      events, median of 10) with zero dropped pairs, and each kernel (K6
      included) beside its bound, its plain version and, where one exists,
-     a library call;
+     a library call; print each input's tile skew (the small, bench and
+     train inputs: the heaviest tile's pairs and evaluations, and the
+     heaviest blend work unit's evaluations, as multiples of an even
+     per-SM share);
   5. train ``gaussian_splatting.yaml`` for 20 steps through the port's own
      ``launch.main`` (512^2, batch 4, tile 32, capacity 651,024, 4096
      initial points, fake SDS guidance; the test renders follow) with every
@@ -197,23 +200,51 @@ def kernel_inputs(torch, scene, seed):
 
 
 def count_evals(torch, inp):
-    """(pixel, pair) evaluations the blend kernels make on these inputs: a
-    pixel evaluates each pair of its tile until its transmittance before
-    the pair falls below 1e-4 (the plain version's chunk walk)."""
+    """(pixel, pair) evaluations the blend kernels make on these inputs, per
+    pixel, (T, ts^2): a pixel evaluates each pair of its tile until its
+    transmittance before the pair falls below 1e-4 (the plain version's
+    chunk walk)."""
     from threestudio_3dgs_tpu_torch.ops.rasterizer import blend
 
     gx, gy, ts, _ = inp["dims"]
     px, py = blend._tile_pixel_coords(gx * gy, gx, ts, inp["pair_feats"].device)
     walk = blend._ChunkWalk(inp["pair_feats"], inp["bins"].tile_ranges, gx * gy, ts * ts)
-    evals = 0
+    evals = torch.zeros((gx * gy, ts * ts), dtype=torch.int64, device=px.device)
     with torch.no_grad():
         while bool(walk.active.any()):
             _, pmask, f = walk.step()
             alpha, _, _, _, _ = blend._chunk_alpha(f, px, py, pmask)
             _, cum_incl, _, cum_excl, _ = blend._weights(alpha, walk.raw)
-            evals += int(((cum_excl >= blend.T_EPS) & pmask[..., None]).sum())
+            evals += ((cum_excl >= blend.T_EPS) & pmask[..., None]).sum(dim=1)
             walk.advance(cum_incl[:, -1])
     return evals
+
+
+def log_tile_skew(torch, inp, pix_evals, label):
+    """The heaviest tile's pairs and evaluations, and the heaviest K1 and K2
+    work unit's evaluations, as multiples of an even per-SM share of the
+    view's (what one SM would do if the work spread evenly)."""
+    from threestudio_3dgs_tpu_torch.ops.rasterizer import blend
+
+    gx, gy, ts, _ = inp["dims"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    ranges = inp["bins"].tile_ranges
+    pairs = ranges[1:] - ranges[:-1]
+    tile_evals = pix_evals.sum(dim=1)
+    total_p, total_e = int(pairs.sum()), int(tile_evals.sum())
+
+    def share(n, total):
+        return f"{n * n_sm / max(total, 1):.2f}x"
+
+    units = []
+    for name, u in (("K1", blend.FWD_UNIT), ("K2", blend.BWD_UNIT)):
+        k = ts // u
+        most = int(pix_evals.reshape(gx * gy, k, u, k, u).sum(dim=(2, 4)).max())
+        units.append(f"heaviest {name} unit ({u}x{u}) {most} = {share(most, total_e)}")
+    log(f"tile skew {label:5s}: {int((pairs > 0).sum())} of {gx * gy} tiles hold pairs; heaviest "
+        f"tile {int(pairs.max())} pairs = {share(int(pairs.max()), total_p)} an even per-SM share "
+        f"({total_p} / {n_sm}), {int(tile_evals.max())} evaluations = "
+        f"{share(int(tile_evals.max()), total_e)} ({total_e} / {n_sm}); " + ", ".join(units))
 
 
 def check_kernels(torch, inp, label):
@@ -334,10 +365,11 @@ def time_ms(torch, fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
-def time_kernels(torch, inp):
+def time_kernels(torch, inp, label):
     """Per kernel: its time, its plain version's time, a library call's
     time where one computes the same function, and its bound from the
-    bytes it must move and the operations these inputs need."""
+    bytes it must move and the operations these inputs need; the tile
+    skew of the inputs first."""
     from threestudio_3dgs_tpu_torch.ops.rasterizer import blend, expand, segsum
 
     gx, gy, ts, c = inp["dims"]
@@ -349,7 +381,9 @@ def time_kernels(torch, inp):
     n = plan.offsets.shape[0]
     t = gx * gy
     out_bytes = out.numel() * 4
-    evals = count_evals(torch, inp)
+    pix_evals = count_evals(torch, inp)
+    log_tile_skew(torch, inp, pix_evals, label)
+    evals = int(pix_evals.sum())
     live = plan.kept > 0
     big_rect = (plan.mask == expand.MASK_NONE)[plan.depth_order]
     n_live, n_live_big = int(live.sum()), int((live & big_rect).sum())
@@ -773,6 +807,7 @@ def main():
     t0 = time.perf_counter()
     small = kernel_inputs(torch, small_scene(torch, cam_mod), seed=1)
     errs = {"small": check_kernels(torch, small, "small")}
+    log_tile_skew(torch, small, count_evals(torch, small), "small")
     k6_err, k6_launches = check_slots(torch, native, small, "small")
     bench = bench_scene("cuda")
     bench_inp = kernel_inputs(torch, bench, seed=2)
@@ -782,7 +817,7 @@ def main():
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     log("bench-scene timing:")
-    time_kernels(torch, bench_inp)
+    time_kernels(torch, bench_inp, "bench")
     k6_time = time_slots(torch, bench_inp)
     del bench_inp
     bench_render(torch, bench, native)
@@ -793,7 +828,7 @@ def main():
     train_inp = kernel_inputs(torch, trained_scene(torch, trainer), seed=3)
     errs["train"] = check_kernels(torch, train_inp, "train")
     log("train-shape timing (the main path's shapes; these go in the kernels line):")
-    timing = time_kernels(torch, train_inp)
+    timing = time_kernels(torch, train_inp, "train")
     del trainer, train_inp
     torch.cuda.empty_cache()
 

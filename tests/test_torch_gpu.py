@@ -82,17 +82,64 @@ def test_expand_kernel_matches_plain(cuda):
         assert torch.equal(g, w), name  # integer outputs: exact
 
 
-@pytest.mark.parametrize("ts", [16, 32])
-@torch.no_grad()
-def test_blend_kernels_match_plain(cuda, ts):
-    _, bins, pf, g_out, dims = kernel_inputs(make_scene(cuda), ts)
-    ranges = bins.tile_ranges
+# pair-count cases for the blend kernels' work units (tile 32: four 16x16
+# units a tile, tile 16: one), on a 4 x 3 grid of tiles
+BLEND_CASES = ("skewed", "ragged", "opaque_front")
+
+
+def blend_case(case, ts, device="cpu", seed=0):
+    """Pair rows, tile ranges and a cotangent made directly with numpy:
+    ``skewed``, one tile of 4000 faint pairs (opacity <= 0.25, so its pixels
+    walk about a thousand pairs) beside empty tiles and two light ones;
+    ``ragged``, counts that are multiples of no batch (32, 48), group
+    (3) or unit size; ``opaque_front``, a 2500-pair tile whose first three
+    pairs are near-opaque Gaussians over its top-left 16x16 pixels, so
+    those pixels stop within three pairs while the rest of the tile (the
+    other units at tile 32) walks on.  Rows are [x, y, conic a, b, c,
+    opacity, r, g, b, depth]; returns (pair_feats, tile_ranges, g_out,
+    (grid_x, grid_y, ts, 4))."""
+    gx, gy = 4, 3
+    counts = np.zeros(gx * gy, np.int64)
+    if case == "skewed":
+        counts[5], counts[6], counts[10] = 4000, 7, 300
+    elif case == "ragged":
+        counts[:] = [1, 2, 5, 31, 47, 49, 97, 0, 145, 241, 1001, 3]
+    elif case == "opaque_front":
+        counts[0], counts[1], counts[9] = 2500, 50, 77
+    else:
+        raise ValueError(case)
+    rng = np.random.default_rng(seed)
+    max_opacity = 0.25 if case == "skewed" else 0.7
+    rows = []
+    for t, n in enumerate(counts):
+        x0, y0 = (t % gx) * ts, (t // gx) * ts
+        sx, sy = rng.uniform(1.5, 8.0, n), rng.uniform(1.5, 8.0, n)
+        rho = rng.uniform(-0.6, 0.6, n)
+        det = 1.0 - rho**2
+        block = np.stack([
+            x0 + rng.uniform(-4.0, ts + 4.0, n), y0 + rng.uniform(-4.0, ts + 4.0, n),
+            1.0 / (sx**2 * det), -rho / (sx * sy * det), 1.0 / (sy**2 * det),
+            rng.uniform(0.02, max_opacity, n), *rng.uniform(size=(3, n)), np.sort(rng.uniform(1.0, 5.0, n)),
+        ], axis=1)
+        if case == "opaque_front" and t == 0:
+            block[:3, :6] = [x0 + 8.0, y0 + 8.0, 1 / 36.0, 0.0, 1 / 36.0, 0.999]
+        rows.append(block)
+    pair_feats = torch.as_tensor(np.concatenate(rows), dtype=torch.float32, device=device)
+    ranges = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]), device=device)
+    g_out = torch.as_tensor(rng.normal(size=(gx * gy, ts * ts, 5)), dtype=torch.float32,
+                            device=device)
+    return pair_feats, ranges, g_out, (gx, gy, ts, 4)
+
+
+def check_blend_kernels(pf, ranges, g_out, dims):
+    """K1 and K2 against their plain versions, and bitwise-identical reruns."""
     out = blend.blend_forward_cuda(pf, ranges, *dims)
     want = blend.blend_forward_torch(pf, ranges, *dims)
     torch.cuda.synchronize()
     # one pair at a time vs chunked cumulative products: the transmittance
     # rounds apart by a few ulp per pair
     assert float((out - want).abs().max()) <= 2e-4 * max(1.0, float(want.abs().max()))
+    assert torch.equal(out, blend.blend_forward_cuda(pf, ranges, *dims))
     d = blend.blend_backward_cuda(pf, ranges, want, g_out, *dims)
     d_want = blend.blend_backward_torch(pf, ranges, want, g_out, *dims)
     torch.cuda.synchronize()
@@ -100,6 +147,22 @@ def test_blend_kernels_match_plain(cuda, ts):
     assert float(((d - d_want).abs().amax(dim=0) / scale).max()) <= 1e-3
     d2 = blend.blend_backward_cuda(pf, ranges, want, g_out, *dims)
     assert torch.equal(d, d2)  # no atomics: reruns are bitwise identical
+
+
+@pytest.mark.parametrize("ts", [16, 32])
+@torch.no_grad()
+def test_blend_kernels_match_plain(cuda, ts):
+    _, bins, pf, g_out, dims = kernel_inputs(make_scene(cuda), ts)
+    check_blend_kernels(pf, bins.tile_ranges, g_out, dims)
+
+
+@pytest.mark.parametrize("case", BLEND_CASES)
+@pytest.mark.parametrize("ts", [16, 32])
+@torch.no_grad()
+def test_blend_kernels_unit_cases(cuda, ts, case):
+    """The work-unit split at a skewed tile, ragged pair counts and a unit
+    whose pixels stop within three pairs while its tile walks on."""
+    check_blend_kernels(*blend_case(case, ts, cuda))
 
 
 @torch.no_grad()

@@ -15,6 +15,7 @@ import torch
 
 from test_expand_pallas import random_case
 from test_rasterizer import make_scene
+from test_torch_gpu import BLEND_CASES, blend_case
 
 from threestudio_3dgs_tpu.ops.rasterizer import blend_jax
 from threestudio_3dgs_tpu.ops.rasterizer.binning import bin_gaussians as jax_bin
@@ -231,6 +232,42 @@ def test_blend_backward_matches_jax(tile_size):
     scale = np.abs(want).max(axis=0)
     assert (scale > 0).all()
     np.testing.assert_array_less(np.abs(got - want).max(axis=0), 1e-5 * scale)
+
+
+@pytest.mark.parametrize("case", BLEND_CASES)
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_blend_unit_cases_match_jax(tile_size, case):
+    """The plain twins on the gpu tests' work-unit cases (a 4000-pair tile
+    beside empty ones, ragged counts, an opaque front over one unit)."""
+    pf, ranges, g_out, dims = (t.numpy() if torch.is_tensor(t) else t
+                               for t in blend_case(case, tile_size))
+    out = blend_jax.blend_forward(jnp.asarray(pf), jnp.asarray(ranges), *dims)
+    got = blend.blend_forward(T(pf), T(ranges, torch.int64), *dims).numpy()
+    np.testing.assert_allclose(got, np.asarray(out), rtol=0, atol=5e-6)
+    want = np.asarray(blend_jax.blend_backward(
+        jnp.asarray(pf), jnp.asarray(ranges), out, jnp.asarray(g_out), *dims))
+    got = blend.blend_backward(T(pf), T(ranges, torch.int64), T(out), T(g_out), *dims).numpy()
+    scale = np.abs(want).max(axis=0)
+    assert (scale > 0).all()
+    np.testing.assert_array_less(np.abs(got - want).max(axis=0), 1e-5 * scale)
+
+
+@pytest.mark.parametrize("tile_size,n_pairs", [(16, 1000), (32, 1000), (32, 1_490_904)])
+def test_blend_backward_scratch(tile_size, n_pairs):
+    """K2's scratch: the order always; the units' partial rows, stops and
+    arrival counters only when a tile has several 16x16 units (tile 32),
+    with the shapes and types the kernel indexes them by."""
+    num_tiles, n_feats = 257, 10
+    scratch = blend.backward_scratch(num_tiles, n_pairs, tile_size, n_feats, "cpu")
+    units = {16: 1, 32: 4}[tile_size]
+    split = units > 1
+    want = dict(partial=((units, n_pairs, n_feats) if split else (0,), torch.float32),
+                stops=((num_tiles, units) if split else (0,), torch.int64),
+                arrive=((num_tiles,) if split else (0,), torch.int32),
+                order=((num_tiles,), torch.int32))
+    assert {k: (tuple(t.shape), t.dtype) for k, t in scratch.items()} == want
+    if n_pairs == 1_490_904:  # the bench scene: 0.24 GB of partial rows
+        assert scratch["partial"].numel() * 4 == 238_544_640
 
 
 def test_tiles_to_image_matches_jax():

@@ -47,8 +47,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 SIGNATURES = {
-    "blend_forward": ("blend", [_P, _P, _P, _I, _I, _I, _I, _P]),
-    "blend_backward": ("blend", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "blend_forward": ("blend", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "blend_backward": ("blend", [_P] * 9 + [_LL, _I, _I, _I, _I, _P]),
     "segsum_monotone": ("segsum", [_P, _P, _P, _P, _LL, _I, _P]),
     "expand_bin": ("expand", [_P] * 12 + [_LL, _I, _I, _I, _P]),
     "expand_slots": ("expand", [_P, _P, _LL, _LL, _P]),

@@ -30,6 +30,10 @@ ALPHA_MAX = 0.99
 T_EPS = 1e-4
 KERNEL_CHANNELS = 4  # the kernels are built for rgb + view depth only
 KERNEL_TILE_SIZES = (16, 32)
+# the kernels' work units, square blocks of pixels (csrc/blend.cu kFwdUnit,
+# kBwdUnit)
+FWD_UNIT = 8
+BWD_UNIT = 16
 
 
 def _tile_pixel_coords(num_tiles: int, grid_x: int, tile_size: int, device):
@@ -180,17 +184,38 @@ def _check_blend_args(pair_feats, tile_ranges, num_tiles, tile_size, n_channels)
         raise ValueError(f"blend kernels take tile size {KERNEL_TILE_SIZES}, got {tile_size}")
 
 
+def backward_scratch(num_tiles: int, n_pairs: int, tile_size: int, n_feats: int, device):
+    """K2's scratch: the heaviest-first tile order (T,) i32 and, when a
+    tile has more than one unit, each unit's partial gradient rows (U, P, F)
+    f32 that the tile's last unit sums, each unit's stop (T, U) i64 and the
+    tiles' arrival counters (T,) i32 (empty otherwise)."""
+    units = (tile_size // BWD_UNIT) ** 2
+    split = units > 1
+
+    def empty(shape, dtype):
+        return torch.empty(shape if split else (0,), dtype=dtype, device=device)
+
+    return dict(
+        partial=empty((units, n_pairs, n_feats), torch.float32),
+        stops=empty((num_tiles, units), torch.int64),
+        arrive=empty((num_tiles,), torch.int32),
+        order=torch.empty(num_tiles, dtype=torch.int32, device=device),
+    )
+
+
 def blend_forward_cuda(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_channels):
-    """K1 on the card: one block per tile, one thread per pixel."""
+    """K1 on the card: FWD_UNIT x FWD_UNIT-pixel units, heaviest tile
+    first, one thread per pixel."""
     num_tiles = grid_x * grid_y
     _check_blend_args(pair_feats, tile_ranges, num_tiles, tile_size, n_channels)
+    device = pair_feats.device
     out = torch.empty(
-        (num_tiles, tile_size * tile_size, n_channels + 1),
-        dtype=torch.float32, device=pair_feats.device,
+        (num_tiles, tile_size * tile_size, n_channels + 1), dtype=torch.float32, device=device
     )
+    order = torch.empty(num_tiles, dtype=torch.int32, device=device)
     native.launch(
         "blend_forward", pair_feats.data_ptr(), tile_ranges.data_ptr(), out.data_ptr(),
-        num_tiles, grid_x, tile_size, n_channels, native.stream_handle(pair_feats.device),
+        order.data_ptr(), num_tiles, grid_x, tile_size, n_channels, native.stream_handle(device),
     )
     return out
 
@@ -199,7 +224,8 @@ def blend_backward_cuda(
     pair_feats, tile_ranges, out, g_out, grid_x, grid_y, tile_size, n_channels
 ):
     """K2 on the card: replays the forward walk per pixel and writes each
-    pair's gradient row once (rows no pixel reached stay zero)."""
+    pair's gradient row once (rows no pixel reached stay zero); a tile's
+    units are summed in unit order through the scratch."""
     num_tiles = grid_x * grid_y
     _check_blend_args(pair_feats, tile_ranges, num_tiles, tile_size, n_channels)
     native.check_cuda_tensor(out, "out", torch.float32, 3)
@@ -207,11 +233,15 @@ def blend_backward_cuda(
     shape = (num_tiles, tile_size * tile_size, n_channels + 1)
     if tuple(out.shape) != shape or tuple(g_out.shape) != shape:
         raise ValueError(f"out/g_out must be {shape}")
+    device = pair_feats.device
+    n_pairs, n_feats = pair_feats.shape
     d_feats = torch.zeros_like(pair_feats)
+    scratch = backward_scratch(num_tiles, n_pairs, tile_size, n_feats, device)
     native.launch(
         "blend_backward", pair_feats.data_ptr(), tile_ranges.data_ptr(), out.data_ptr(),
-        g_out.data_ptr(), d_feats.data_ptr(), num_tiles, grid_x, tile_size, n_channels,
-        native.stream_handle(pair_feats.device),
+        g_out.data_ptr(), d_feats.data_ptr(),
+        *(scratch[k].data_ptr() for k in ("partial", "stops", "arrive", "order")),
+        n_pairs, num_tiles, grid_x, tile_size, n_channels, native.stream_handle(device),
     )
     return d_feats
 
