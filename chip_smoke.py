@@ -18,10 +18,17 @@ Phases, each of which fails the run with a non-zero exit:
   4. time a forward+backward ``rasterize`` of bench.py's scene (CUDA
      events, median of 10) with zero dropped pairs, and each kernel (K6
      included) beside its bound, its plain version and, where one exists,
-     a library call; print each input's tile skew (the small, bench and
-     train inputs: the heaviest tile's pairs and evaluations, and the
-     heaviest blend work unit's evaluations, as multiples of an even
-     per-SM share);
+     a library call: the kernel and the library call each by wrapper time
+     (CUDA events around back-to-back calls, host work included) and by
+     device time (one CUDA graph of the same calls replayed between CUDA
+     events: every kernel the call launches, no host work between them;
+     ``torch.profiler`` dropped the records of whole windows on the card's
+     machine, so it is ``utils/kernel_timing.py``'s cross-check); print each
+     input's tile skew (the small, bench and train inputs: the heaviest
+     tile's pairs and evaluations, and the heaviest blend work unit's
+     evaluations, as multiples of an even per-SM share), K4's input
+     shape (live slots, the most pairs a Gaussian has) and K3's (live
+     segments, blocks), each with its bound's bytes;
   5. train ``gaussian_splatting.yaml`` for 20 steps through the port's own
      ``launch.main`` (512^2, batch 4, tile 32, capacity 651,024, 4096
      initial points, fake SDS guidance; the test renders follow) with every
@@ -61,7 +68,9 @@ Phases, each of which fails the run with a non-zero exit:
      its bound, with its TFLOP/s and share of the bound;
   8. print the per-kernel JSON line (launches from the training runs, K6's
      from its checks; times at the main path's shapes, K6's at the bench
-     scene; one K5 row per shape), then ``{"ok": true, ...}`` last.
+     scene; one K5 row per shape; ``ms`` and ``library_ms`` wrapper times,
+     ``device_ms`` and ``library_device_ms`` device times), then
+     ``{"ok": true, ...}`` last.
 
 Nothing is caught and passed over: the first failure ends the run.
 """
@@ -168,35 +177,6 @@ def small_scene(torch, cam_mod):
     dev = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
     return dict(means=dev(means), scales=dev(scales), quats=dev(quats),
                 opac=dev(opac), colors=dev(colors), cam=cam, alive=None, tile_size=16)
-
-
-def kernel_inputs(torch, scene, seed):
-    """Every kernel's inputs for one view of `scene`, as rasterize makes
-    them, plus a random cotangent of the blend output."""
-    from threestudio_3dgs_tpu_torch.ops.rasterizer import blend, binning, preprocess
-
-    cam, ts = scene["cam"], scene["tile_size"]
-    gx = (cam.width + ts - 1) // ts
-    gy = (cam.height + ts - 1) // ts
-    with torch.no_grad():
-        proj = preprocess.project_gaussians(
-            scene["means"], scene["scales"], scene["quats"], cam, ts, alive=scene["alive"])
-        plan = binning.plan_pairs(proj, gx, gy, 2**21, ts, scene["opac"])
-        bins = binning.bin_gaussians(proj, gx, gy, 2**21, ts, scene["opac"])
-        channels = torch.cat([scene["colors"], proj.depths[:, None]], dim=1)
-        feats = torch.cat([proj.means2d, proj.conics, scene["opac"][:, None], channels], dim=1)
-        pair_feats = feats[bins.pair_gauss].contiguous()
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        npix = ts * ts
-        c = channels.shape[1]
-        g_out = torch.randn((gx * gy, npix, c + 1), generator=gen, device="cuda")
-        out = blend.blend_forward_cuda(pair_feats, bins.tile_ranges, gx, gy, ts, c)
-        d_pairs = blend.blend_backward_cuda(pair_feats, bins.tile_ranges, out, g_out, gx, gy, ts, c)
-        seg = binning.segsum_inputs(bins, d_pairs)
-    if bins.n_dropped:
-        fail(f"kernel inputs drop {bins.n_dropped} pairs")
-    return dict(plan=plan, bins=bins, pair_feats=pair_feats, out=out, g_out=g_out,
-                seg=seg, dims=(gx, gy, ts, c))
 
 
 def count_evals(torch, inp):
@@ -325,59 +305,59 @@ def check_slots(torch, native, inp, label):
 
 
 def time_slots(torch, inp):
-    """K6 at a scene's offsets: its time, its plain version's,
-    torch.searchsorted's, and its bound (offsets read once and the slots
-    written once, 4 B each; ceil(log2(N + 1)) comparisons per pair at the
-    f32 CUDA-core rate)."""
+    """K6 at a scene's offsets: its wrapper and device times, its plain
+    version's, torch.searchsorted's, and its bound (offsets read once and
+    the slots written once, 4 B each; ceil(log2(N + 1)) comparisons per
+    pair at the f32 CUDA-core rate)."""
     from threestudio_3dgs_tpu_torch.ops.rasterizer import expand
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import graph_ms, wrapper_ms
 
     offsets, total, max_pairs = slot_inputs(inp)
     n = offsets.shape[0]
     positions = torch.arange(max_pairs, dtype=torch.int32, device="cuda")
     b_ms = (4 * n + 4 * max_pairs) / PEAK_BYTES_PER_S * 1e3
     o_ms = max_pairs * int(np.ceil(np.log2(n + 1))) / PEAK_F32_FLOPS * 1e3
+    call = lambda: expand.expand_slots_cuda(offsets, max_pairs)  # noqa: E731
+    library = lambda: torch.searchsorted(offsets, positions, right=True) - 1  # noqa: E731
     with torch.no_grad():
         row = dict(
-            ms=time_ms(torch, lambda: expand.expand_slots_cuda(offsets, max_pairs), 20),
-            plain_ms=time_ms(torch, lambda: expand.expand_slots_torch(offsets, max_pairs), 5),
-            library_ms=time_ms(torch, lambda: torch.searchsorted(
-                offsets, positions, right=True) - 1, 20),
+            ms=wrapper_ms(call, 20),
+            device_ms=graph_ms(call, 20),
+            plain_ms=wrapper_ms(lambda: expand.expand_slots_torch(offsets, max_pairs), 5),
+            library_ms=wrapper_ms(library, 20),
+            library_device_ms=graph_ms(library, 20),
             bound=(max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"),
         )
-    log(f"time  expand_slots    {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-        f"bound {row['bound'][0]:.4f} ms ({row['bound'][1]})  library (torch.searchsorted) "
-        f"{row['library_ms']:.4f} ms  [{n} offsets, {total} pairs, max_pairs {max_pairs}]")
+    log_time("expand_slots", row, "torch.searchsorted",
+             f"[{n} offsets, {total} pairs, max_pairs {max_pairs}]")
     return row
 
 
-def time_ms(torch, fn, iters, warmup=1):
-    """Mean time of one call over `iters` calls, CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def log_time(name, r, library_name, note=""):
+    log(f"time  {name:15s} wrapper {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms  plain "
+        f"{r['plain_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  library"
+        + (" n/a" if r["library_ms"] is None else
+           f" ({library_name}) wrapper {r['library_ms']:.4f} ms, device "
+           f"{r['library_device_ms']:.4f} ms") + (f"  {note}" if note else ""))
 
 
 def time_kernels(torch, inp, label):
-    """Per kernel: its time, its plain version's time, a library call's
-    time where one computes the same function, and its bound from the
-    bytes it must move and the operations these inputs need; the tile
-    skew of the inputs first."""
+    """Per kernel: its wrapper and device times, its plain version's time,
+    a library call's wrapper and device times where one computes the same
+    function, and its bound from the bytes it must move and the operations
+    these inputs need; the tile skew and K4's and K3's input shapes first."""
+    from threestudio_3dgs_tpu_torch.ops import native
     from threestudio_3dgs_tpu_torch.ops.rasterizer import blend, expand, segsum
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import (
+        kernel_calls, time_call, wrapper_ms)
 
     gx, gy, ts, c = inp["dims"]
     pf, ranges = inp["pair_feats"], inp["bins"].tile_ranges
     out, g_out = inp["out"], inp["g_out"]
     vals, offs, counts = inp["seg"]
+    f_seg = vals.shape[1]
     plan = inp["plan"]
-    p, f = pf.shape
+    p = pf.shape[0]
     n = plan.offsets.shape[0]
     t = gx * gy
     out_bytes = out.numel() * 4
@@ -385,54 +365,66 @@ def time_kernels(torch, inp, label):
     log_tile_skew(torch, inp, pix_evals, label)
     evals = int(pix_evals.sum())
     live = plan.kept > 0
-    big_rect = (plan.mask == expand.MASK_NONE)[plan.depth_order]
+    big_rect = (plan.rect[:, 3] == expand.MASK_NONE)[plan.depth_order]
     n_live, n_live_big = int(live.sum()), int((live & big_rect).sum())
     big_rect_pairs = int(plan.kept[big_rect].sum())
+    # K4 reads each live slot's offset and Gaussian id (8 B each) and that
+    # Gaussian's (x0, y0, w, mask) row (16 B), a big rect its 6 cull fields
+    # (24 B); each pair writes 20 B.  The count before the pair-parallel
+    # design also charged 8 B of count to every slot of the capacity.
+    k4_bytes = n_live * 32 + n_live_big * 24 + p * 20
+    k4_old_bytes = n * 8 + k4_bytes
+    log(f"K4 inputs {label}: {n_live} live slots of {n}, {p} pairs, at most "
+        f"{int(plan.kept.max())} pairs a Gaussian, {n_live_big} rects without a mask "
+        f"({big_rect_pairs} pairs); bound bytes {k4_bytes} (old count {k4_old_bytes})")
+    # K3 reads every row once and writes every segment's sum; of the
+    # offsets and counts it needs those of the live segments (16 B each)
+    # and, per block of segments, the first offset and the last offset
+    # and count (24 B), which show a block of the dead capacity empty.  The
+    # count before this also charged 8 B of count to every segment.
+    n_seg, n_seg_live = counts.shape[0], int((counts > 0).sum())
+    seg_blocks = -(-n_seg // native.library("segsum").segsum_block_segments(f_seg))
+    k3_io = vals.numel() * 4 + n_seg * f_seg * 4
+    k3_bytes = k3_io + n_seg_live * 16 + seg_blocks * 24
+    k3_old_bytes = k3_io + n_seg * 8 + n_seg_live * 8
+    log(f"K3 inputs {label}: {n_seg_live} live segments of {n_seg} ({seg_blocks} blocks), "
+        f"{vals.shape[0]} rows of {f_seg}; bound bytes {k3_bytes} (old count {k3_old_bytes})")
 
     def bound(nbytes, ops):
         b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         o_ms = ops / PEAK_F32_FLOPS * 1e3
         return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
 
+    plain = {
+        "blend_forward": (lambda: blend.blend_forward_torch(pf, ranges, gx, gy, ts, c), 2),
+        "blend_backward": (
+            lambda: blend.blend_backward_torch(pf, ranges, out, g_out, gx, gy, ts, c), 2),
+        "segsum_monotone": (lambda: segsum.segsum_torch(vals, offs, counts), 5),
+        "expand_bin": (lambda: plan.expand(expand.expand_bin_torch), 5),
+    }
+    bounds = {
+        "blend_forward": bound(pf.numel() * 4 + ranges.numel() * 8 + out_bytes,
+                               evals * fwd_ops_per_eval(c)),
+        "blend_backward": bound(2 * pf.numel() * 4 + ranges.numel() * 8 + 2 * out_bytes,
+                                evals * bwd_ops_per_eval(c)),
+        "segsum_monotone": bound(k3_bytes, vals.numel()),
+        "expand_bin": bound(k4_bytes, big_rect_pairs * TILE_REACHABLE_OPS),
+    }
+    libraries = {"segsum_monotone": "torch.segment_reduce"}
     rows = {}
     with torch.no_grad():
-        rows["blend_forward"] = dict(
-            ms=time_ms(torch, lambda: blend.blend_forward_cuda(pf, ranges, gx, gy, ts, c), 20),
-            plain_ms=time_ms(torch, lambda: blend.blend_forward_torch(pf, ranges, gx, gy, ts, c), 2),
-            library_ms=None,
-            bound=bound(pf.numel() * 4 + ranges.numel() * 8 + out_bytes, evals * fwd_ops_per_eval(c)),
-        )
-        rows["blend_backward"] = dict(
-            ms=time_ms(torch, lambda: blend.blend_backward_cuda(pf, ranges, out, g_out, gx, gy, ts, c), 20),
-            plain_ms=time_ms(torch, lambda: blend.blend_backward_torch(pf, ranges, out, g_out, gx, gy, ts, c), 2),
-            library_ms=None,
-            bound=bound(2 * pf.numel() * 4 + ranges.numel() * 8 + 2 * out_bytes,
-                        evals * bwd_ops_per_eval(c)),
-        )
-        rows["segsum_monotone"] = dict(
-            ms=time_ms(torch, lambda: segsum.segsum_cuda(vals, offs, counts), 20),
-            plain_ms=time_ms(torch, lambda: segsum.segsum_torch(vals, offs, counts), 5),
-            library_ms=time_ms(torch, lambda: torch.segment_reduce(
-                vals, "sum", lengths=counts, axis=0, unsafe=True), 20),
-            # every segment's count and output row; offsets of non-empty ones
-            bound=bound(vals.numel() * 4 + n * 8 + int((counts > 0).sum()) * 8 + n * f * 4,
-                        vals.numel()),
-        )
-        rows["expand_bin"] = dict(
-            ms=time_ms(torch, lambda: plan.expand(expand.expand_bin_cuda), 20),
-            plain_ms=time_ms(torch, lambda: plan.expand(expand.expand_bin_torch), 5),
-            library_ms=None,
-            # every slot's count (8 B); a slot with pairs also reads its offset,
-            # its Gaussian id and that Gaussian's x0, y0, width and mask (32 B),
-            # and a big rect its 6 cull fields (24 B); each pair writes 20 B
-            bound=bound(n * 8 + n_live * 32 + n_live_big * 24 + p * 20,
-                        big_rect_pairs * TILE_REACHABLE_OPS),
-        )
+        for name, (call, library) in kernel_calls(inp).items():
+            plain_fn, plain_iters = plain[name]
+            rows[name] = dict(
+                time_call(call, 20),
+                **(time_call(library, 20, "library_") if library is not None else
+                   dict(library_ms=None, library_device_ms=None)),
+                plain_ms=wrapper_ms(plain_fn, plain_iters),
+                bound=bounds[name],
+            )
     log(f"timing inputs: {p} pairs, {t} tiles of {ts}x{ts}, {evals} (pixel, pair) evaluations")
     for name, r in rows.items():
-        log(f"time  {name:15s} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  library "
-            + ("n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"))
+        log_time(name, r, libraries.get(name, ""))
     return rows
 
 
@@ -536,6 +528,7 @@ def time_structural(torch, gauss):
     a run's first call of an op also loads its kernels), with the run's
     settings: every alive row densifies (threshold 0), prune at 0.005."""
     from threestudio_3dgs_tpu_torch.models import gaussian_field as gf
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import wrapper_ms
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     ops = {
@@ -544,7 +537,7 @@ def time_structural(torch, gauss):
         "opacity reset": lambda: gf.reset_opacity_op(gauss),
         "cap-prune": lambda: gf.cap_prune_op(gauss, FULL_MAX_NUM // 2, generator=gen),
     }
-    times = {name: time_ms(torch, fn, 5) for name, fn in ops.items()}
+    times = {name: wrapper_ms(fn, 5) for name, fn in ops.items()}
     log(f"structural ops at {gauss.n_alive} alive of {gauss.capacity}: "
         + ", ".join(f"{name} {ms:.3f} ms" for name, ms in times.items()))
 
@@ -691,6 +684,7 @@ def time_flash(torch):
     import torch.nn.functional as F
 
     from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import graph_ms, wrapper_ms
     from threestudio_3dgs_tpu_torch.utils.profiling import k5_inputs
 
     rows = {}
@@ -700,19 +694,22 @@ def time_flash(torch):
             d = q.shape[-1]
             b_ms = 4 * q.numel() * q.element_size() / PEAK_BYTES_PER_S * 1e3
             o_ms = 4 * bh * n * n * d / PEAK_BF16_TC_FLOPS * 1e3
+            call = lambda: fa.flash_bhnd_cuda(q, k, v, 0.125)  # noqa: E731
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q[None], k[None], v[None], scale=0.125)
             rows[(bh, n)] = dict(
-                ms=time_ms(torch, lambda: fa.flash_bhnd_cuda(q, k, v, 0.125), 10),
-                plain_ms=time_ms(torch, lambda: fa.flash_bhnd_torch(q, k, v, 0.125), 3),
-                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q[None], k[None], v[None], scale=0.125), 20),
+                ms=wrapper_ms(call, 10),
+                device_ms=graph_ms(call, 10),
+                plain_ms=wrapper_ms(lambda: fa.flash_bhnd_torch(q, k, v, 0.125), 3),
+                library_ms=wrapper_ms(library, 20),
+                library_device_ms=graph_ms(library, 20),
                 bound=(max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"),
             )
             r = rows[(bh, n)]
-            log(f"time  flash_attention ({bh}, {n}, {d}) bfloat16: {r['ms']:.4f} ms "
-                f"({4 * bh * n * n * d / r['ms'] / 1e9:.1f} TFLOP/s, "
-                f"{r['bound'][0] / r['ms']:.1%} of the bound)  plain "
-                f"{r['plain_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  "
-                f"library (scaled_dot_product_attention) {r['library_ms']:.4f} ms")
+            log_time(f"flash_attention ({bh}, {n}, {d}) bfloat16", r,
+                     "scaled_dot_product_attention",
+                     f"[by device time {4 * bh * n * n * d / r['device_ms'] / 1e9:.1f} TFLOP/s, "
+                     f"{r['bound'][0] / r['device_ms']:.1%} of the bound]")
             del q, k, v
     torch.cuda.empty_cache()
     return rows
@@ -784,6 +781,7 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
     from threestudio_3dgs_tpu_torch.ops import camera as cam_mod
     from threestudio_3dgs_tpu_torch.ops import native
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
     from threestudio_3dgs_tpu_torch.utils.profiling import bench_scene
 
     smi = subprocess.run(
@@ -805,12 +803,12 @@ def main():
             log(f"  {line.strip()}")
 
     t0 = time.perf_counter()
-    small = kernel_inputs(torch, small_scene(torch, cam_mod), seed=1)
+    small = view_inputs(small_scene(torch, cam_mod), seed=1)
     errs = {"small": check_kernels(torch, small, "small")}
     log_tile_skew(torch, small, count_evals(torch, small), "small")
     k6_err, k6_launches = check_slots(torch, native, small, "small")
     bench = bench_scene("cuda")
-    bench_inp = kernel_inputs(torch, bench, seed=2)
+    bench_inp = view_inputs(bench, seed=2)
     errs["bench"] = check_kernels(torch, bench_inp, "bench")
     err, launches = check_slots(torch, native, bench_inp, "bench")
     k6_err, k6_launches = max(k6_err, err), k6_launches + launches
@@ -825,7 +823,7 @@ def main():
     torch.cuda.empty_cache()
 
     trainer, train_launches = train(torch, native)
-    train_inp = kernel_inputs(torch, trained_scene(torch, trainer), seed=3)
+    train_inp = view_inputs(trained_scene(torch, trainer), seed=3)
     errs["train"] = check_kernels(torch, train_inp, "train")
     log("train-shape timing (the main path's shapes; these go in the kernels line):")
     timing = time_kernels(torch, train_inp, "train")
@@ -861,10 +859,12 @@ def main():
             "launches": launches,
             "max_abs_err": err,
             "ms": t["ms"],
+            "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

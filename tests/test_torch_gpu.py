@@ -82,6 +82,127 @@ def test_expand_kernel_matches_plain(cuda):
         assert torch.equal(g, w), name  # integer outputs: exact
 
 
+# K4's edge cases, made directly with numpy in the layout plan_pairs gives
+EXPAND_CASES = ("full_view_rect", "mask_bits", "capacity_drop", "ragged", "straddle",
+                "single_pair", "sparse_capacity", "empty_run")
+
+
+def _random_rects(rng, n, grid, big_share=0.15):
+    """n live Gaussians' [x0, y0, w, h] and masks: mostly rects of <= 24
+    tiles with a random reachable subset as mask, some larger rects."""
+    rects, masks = [], []
+    for _ in range(n):
+        if rng.uniform() < big_share:
+            w, h = int(rng.integers(5, grid + 1)), int(rng.integers(5, grid + 1))
+            mask = expand.MASK_NONE
+        else:
+            w = int(rng.integers(1, 7))
+            h = int(rng.integers(1, min(24 // w, grid) + 1))
+            mask = int(np.sum((rng.uniform(size=w * h) < 0.7) << np.arange(w * h)))
+        rects.append([rng.integers(0, grid - w + 1), rng.integers(0, grid - h + 1), w, h])
+        masks.append(mask)
+    return np.asarray(rects, np.int64).reshape(-1, 4), np.asarray(masks, np.int64)
+
+
+def expand_case(case, device="cpu", seed=0):
+    """K4's inputs for one edge case, as ``PairPlan.expand`` passes them
+    (offsets of the full counts, counts clipped to n_pairs, Gaussian ids in
+    depth order, packed rect rows and cull fields in original order):
+    ``full_view_rect``, a Gaussian whose rect is every tile of a 512^2 /
+    tile-32 view, culled per tile, among 200 others; ``mask_bits``, masks of
+    0, 1 and 24 set bits; ``capacity_drop``, 1000 pairs past n_pairs;
+    ``ragged``, 1025 one-pair Gaussians without cull (full blocks, each
+    staging as many slots as it has pairs, then a 1-pair block);
+    ``straddle``, 300-pair rects on a
+    32 x 32 grid, so block ranges start inside a Gaussian's pairs;
+    ``single_pair``; ``sparse_capacity``, 100 live slots of 1,000,000;
+    ``empty_run``, 5000 empty slots between live ones (a block spans more
+    slots than it stages).  Returns (args, kwargs) of ``expand_bin``."""
+    rng = np.random.default_rng(seed)
+    grid, n_before, n_after, clip, cull_on = 16, 0, 0, None, True
+    if case == "full_view_rect":
+        rects, masks = _random_rects(rng, 200, grid)
+        rects[100], masks[100] = [0, 0, grid, grid], expand.MASK_NONE
+    elif case == "mask_bits":
+        rects, masks = _random_rects(rng, 500, grid)
+        rects[10:13] = [2, 3, 6, 4]
+        masks[10:13] = [0, 1 << 5, (1 << 24) - 1]
+    elif case == "capacity_drop":
+        rects, masks = _random_rects(rng, 1500, grid)
+        clip = -1000
+    elif case == "ragged":
+        rects, masks = _random_rects(rng, 1025, grid, big_share=0.0)
+        masks = 1 << rng.integers(0, rects[:, 2] * rects[:, 3])
+        cull_on = False
+    elif case == "straddle":
+        grid = 32
+        rects = np.tile([[3, 5, 25, 12]], (12, 1))
+        masks = np.full(12, expand.MASK_NONE)
+    elif case == "single_pair":
+        rects, masks = np.asarray([[4, 7, 1, 1]]), np.asarray([1])
+        n_after = 10
+    elif case == "sparse_capacity":
+        rects, masks = _random_rects(rng, 100, grid)
+        n_after = 1_000_000 - 100
+    elif case == "empty_run":
+        rects, masks = _random_rects(rng, 600, grid, big_share=0.05)
+        n_before, n_after = 300, 100
+    else:
+        raise ValueError(case)
+    live = len(rects)
+    counts_live = np.where(masks == expand.MASK_NONE, rects[:, 2] * rects[:, 3],
+                           [bin(int(m) & ((1 << 24) - 1)).count("1") for m in masks])
+    counts = np.concatenate([counts_live, np.zeros(n_after, np.int64)])
+    if case == "empty_run":  # the run sits after the first n_before live slots
+        counts = np.concatenate([counts[:n_before], np.zeros(5000, np.int64), counts[n_before:]])
+    n = counts.shape[0]
+    offsets = np.cumsum(counts) - counts
+    total = int(counts.sum())
+    n_pairs = total + clip if clip is not None else total
+    kept = np.minimum(counts, np.maximum(n_pairs - offsets, 0))
+    depth_order = rng.permutation(n)
+    ranks = np.arange(live)  # the depth ranks of the live rects
+    if case == "empty_run":
+        ranks[n_before:] += 5000
+    # rect rows in original order: the live rects', zeros without a mask elsewhere
+    rect = np.zeros((n, 4), np.int64)
+    rect[:, 3] = expand.MASK_NONE
+    rect[depth_order[ranks]] = np.column_stack([rects[:, :3], masks])
+    cull = np.column_stack([
+        rng.uniform(0, grid * 32, n), rng.uniform(0, grid * 32, n),
+        rng.uniform(2e-4, 5e-3, n), rng.uniform(-1e-4, 1e-4, n), rng.uniform(2e-4, 5e-3, n),
+        rng.uniform(0.02, 0.99, n),
+    ])
+    if case == "full_view_rect":
+        cull[depth_order[100]] = [256.0, 256.0, 1 / 3600.0, 0.0, 1 / 3600.0, 0.9]
+    dev = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)  # noqa: E731
+    args = (dev(offsets, torch.int64), dev(kept, torch.int64), dev(depth_order, torch.int64),
+            dev(rect, torch.int32), n_pairs, grid)
+    kwargs = dict(tile_size=32, num_tiles=grid * grid,
+                  cull_fields=dev(cull, torch.float32) if cull_on else None)
+    return args, kwargs
+
+
+@pytest.mark.parametrize("case", EXPAND_CASES)
+@torch.no_grad()
+def test_expand_kernel_edge_cases(cuda, case):
+    """K4 exactly equal to its plain version on each edge case, and K6 on
+    the same offsets (int32)."""
+    args, kwargs = expand_case(case, cuda)
+    native.reset_launches()
+    got = expand.expand_bin(*args, **kwargs)
+    want = expand.expand_bin_torch(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["expand_bin"] == 1
+    assert got[0].shape == (args[4],)
+    for name, g, w in zip(("slot", "gauss", "tile", "key"), got, want):
+        assert torch.equal(g, w), name
+    offsets, total = args[0].int(), args[4]
+    max_pairs = -(-total // 512) * 512
+    slots = expand.expand_slots(offsets, max_pairs)
+    assert torch.equal(slots[:total], expand.expand_slots_torch(offsets, max_pairs)[:total])
+
+
 # pair-count cases for the blend kernels' work units (tile 32: four 16x16
 # units a tile, tile 16: one), on a 4 x 3 grid of tiles
 BLEND_CASES = ("skewed", "ragged", "opaque_front")
@@ -177,6 +298,57 @@ def test_segsum_kernel_matches_plain(cuda):
     abs_sum = segsum.segsum_torch(vals.abs(), offs, counts)
     torch.cuda.synchronize()
     assert bool(((got - want).abs() <= 1e-5 * abs_sum + 1e-30).all())
+
+
+# K3's edge cases
+SEGSUM_CASES = ("long_segment", "all_empty", "f10", "f13", "f13_unaligned")
+
+
+def segsum_case(case, device="cpu", seed=0):
+    """K3's inputs for one edge case, contiguous segments as
+    ``segsum_inputs`` makes them: ``long_segment``, one segment of 10,000
+    rows among 3000 empty ones; ``all_empty``, 5000 empty segments;
+    ``f10`` / ``f13``, a training view's layout (4096 live segments of
+    about 7 rows, a few of 200, then 16,000 empty ones of the capacity) at
+    F = 10 and at F = 13, the ``pred_normal`` width; ``f13_unaligned``, the
+    same rows as a view one row into a larger tensor (52 bytes, not 16-byte
+    aligned).  Returns (vals, offsets, counts)."""
+    rng = np.random.default_rng(seed)
+    f = 13 if case.startswith("f13") else 10
+    if case == "long_segment":
+        counts = np.zeros(3000, np.int64)
+        counts[1234] = 10_000
+    elif case == "all_empty":
+        counts = np.zeros(5000, np.int64)
+    elif case in ("f10", "f13", "f13_unaligned"):
+        counts = np.zeros(20_096, np.int64)
+        counts[:4096] = rng.poisson(6.7, 4096)
+        counts[rng.integers(0, 4096, 5)] = 200
+    else:
+        raise ValueError(case)
+    rows = max(int(counts.sum()), 16)
+    vals = rng.normal(size=(rows + 1, f)).astype(np.float32)
+    vals = torch.as_tensor(vals, device=device)
+    vals = vals[1:] if case == "f13_unaligned" else vals[:-1].contiguous()
+    offsets = torch.as_tensor(np.cumsum(counts) - counts, device=device)
+    return vals, offsets, torch.as_tensor(counts, device=device)
+
+
+@pytest.mark.parametrize("case", SEGSUM_CASES)
+@torch.no_grad()
+def test_segsum_kernel_edge_cases(cuda, case):
+    """K3 within 1e-5 of each sum of |terms| of its plain version, exact
+    zeros for empty segments, and bitwise-identical reruns."""
+    vals, offs, counts = segsum_case(case, cuda)
+    native.reset_launches()
+    got = segsum.segsum_monotone(vals, offs, counts)
+    want = segsum.segsum_torch(vals, offs, counts)
+    abs_sum = segsum.segsum_torch(vals.abs(), offs, counts)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["segsum_monotone"] == 1
+    assert bool(((got - want).abs() <= 1e-5 * abs_sum + 1e-30).all())
+    assert not bool(got[counts == 0].any())
+    assert torch.equal(got, segsum.segsum_cuda(vals, offs, counts))
 
 
 def test_rasterize_on_card_matches_cpu(cuda):

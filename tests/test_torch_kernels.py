@@ -15,19 +15,28 @@ import torch
 
 from test_expand_pallas import random_case
 from test_rasterizer import make_scene
-from test_torch_gpu import BLEND_CASES, blend_case
+from test_torch_gpu import (
+    BLEND_CASES, EXPAND_CASES as K4_EDGE_CASES, SEGSUM_CASES, blend_case, expand_case,
+    segsum_case,
+)
+from test_torch_gpu import make_scene as port_scene
 
 from threestudio_3dgs_tpu.ops.rasterizer import blend_jax
 from threestudio_3dgs_tpu.ops.rasterizer.binning import bin_gaussians as jax_bin
 from threestudio_3dgs_tpu.ops.rasterizer.expand_pallas import (
+    MASK_K,
     MASK_NONE,
+    _tile_reachable,
     expand_bin_pallas,
     expand_slots_pallas,
 )
 from threestudio_3dgs_tpu.ops.rasterizer.preprocess import project_gaussians
 from threestudio_3dgs_tpu.ops.rasterizer.segsum_pallas import segsum_monotone_pallas
 
-from threestudio_3dgs_tpu_torch.ops.rasterizer import blend, expand, segsum
+from threestudio_3dgs_tpu_torch.ops.rasterizer import binning, blend, expand, segsum
+from threestudio_3dgs_tpu_torch.ops.rasterizer.preprocess import (
+    project_gaussians as port_project,
+)
 
 
 def T(a, dtype=None):
@@ -39,15 +48,17 @@ def T(a, dtype=None):
 # ---------------------------------------------------------------------------
 
 
-def _port_expand(offsets, depth_order, tiles_min, rect_w, grid_x, total, **kw):
+def _port_expand(offsets, depth_order, tiles_min, rect_w, grid_x, total, mask=None, **kw):
     """The port's plain expand on the JAX test's arguments: the port takes
-    the rect fields in ORIGINAL order and the per-rank pair counts."""
+    the rect fields packed in ORIGINAL order and the per-rank pair counts."""
     offs = np.asarray(offsets).astype(np.int64)
     counts = np.diff(np.concatenate([offs, [total]]))
+    x0 = T(tiles_min[:, 0], torch.int32)
+    if mask is None:
+        mask = torch.full_like(x0, MASK_NONE)
+    rect = expand.pack_rect(x0, T(tiles_min[:, 1], torch.int32), T(rect_w, torch.int32), mask)
     return expand.expand_bin_torch(
-        T(offs), T(counts), T(depth_order, torch.int64),
-        T(tiles_min[:, 0], torch.int32), T(tiles_min[:, 1], torch.int32),
-        T(rect_w, torch.int32), total, grid_x, **kw,
+        T(offs), T(counts), T(depth_order, torch.int64), rect, total, grid_x, **kw,
     )
 
 
@@ -130,6 +141,93 @@ def test_expand_bin_matches_pallas(case, seed):
     # the port's sort key: (tile << 32) | depth slot
     key = (got[2].long() << 32) | got[0].long()
     np.testing.assert_array_equal(got[3].numpy(), key.numpy())
+
+
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_plan_pairs_packs_rect_rows(tile_size):
+    """plan_pairs' (N, 4) int32 rows against the four columns they replace:
+    x0, y0 and the width from the projection, and the reachable-tile mask
+    rebuilt tile by tile with the JAX package's _tile_reachable (MASK_NONE
+    for invisible Gaussians and rects of more than MASK_K tiles)."""
+    scene = port_scene("cpu", n=800, size=96, seed=4)
+    proj = port_project(scene["means"], scene["scales"], scene["quats"], scene["cam"], tile_size)
+    g = (96 + tile_size - 1) // tile_size
+    plan = binning.plan_pairs(proj, g, g, 2**21, tile_size, scene["opac"])
+    rect = plan.rect
+    assert rect.dtype == torch.int32 and rect.shape == (800, 4) and rect.is_contiguous()
+    tmin, tmax = proj.tiles_min.long().numpy(), proj.tiles_max.long().numpy()
+    w, h = tmax[:, 0] - tmin[:, 0], tmax[:, 1] - tmin[:, 1]
+    np.testing.assert_array_equal(rect[:, :3].numpy(), np.column_stack([tmin, w]))
+    count = np.where(proj.visible.numpy(), w * h, 0)
+    w1 = np.maximum(w, 1)
+    mx, my = (jnp.asarray(proj.means2d[:, k].numpy()) for k in (0, 1))
+    ca, cb, cc = (jnp.asarray(proj.conics[:, k].numpy()) for k in (0, 1, 2))
+    mask = np.zeros(800, np.int64)
+    for j in range(MASK_K):
+        tx, ty = tmin[:, 0] + j % w1, tmin[:, 1] + j // w1
+        reach = np.asarray(_tile_reachable(
+            jnp.asarray((tx * tile_size).astype(np.float32)),
+            jnp.asarray((ty * tile_size).astype(np.float32)), float(tile_size),
+            mx, my, ca, cb, cc, jnp.asarray(scene["opac"].numpy())))
+        mask |= (reach & (j < count)).astype(np.int64) << j
+    small = proj.visible.numpy() & (count <= MASK_K)
+    np.testing.assert_array_equal(rect[:, 3].numpy(), np.where(small, mask, MASK_NONE))
+    assert small.any() and (mask[small] > 0).any()
+
+
+def _expand_spec(offsets, kept, depth_order, rect, grid_x, tile_size, num_tiles, cull):
+    """expand_bin's contract written out slot by slot, independent of the
+    plain twin: depth slot i owns pairs [offsets[i], offsets[i] + kept[i]);
+    with a mask its r-th pair is the r-th set bit's tile (num_tiles past
+    the last bit), else tile r of the rect in row-major order, culled to
+    num_tiles by the JAX package's _tile_reachable.  Returns (slot, gauss,
+    tile) in pair order."""
+    slot, gauss, tile, culled = [], [], [], []
+    for i in np.flatnonzero(kept):
+        assert offsets[i] == len(slot)  # the pairs fill [0, n_pairs) in slot order
+        k, g = int(kept[i]), int(depth_order[i])
+        x0, y0, w, m = (int(v) for v in rect[g])
+        w = max(w, 1)
+        if m != MASK_NONE:
+            bits = [j for j in range(MASK_K) if m >> j & 1]
+            tiles = [(y0 + j // w) * grid_x + x0 + j % w for j in bits[:k]]
+            tiles += [num_tiles] * (k - len(tiles))
+        else:
+            tiles = [(y0 + r // w) * grid_x + x0 + r % w for r in range(k)]
+            if cull is not None:
+                culled += [(len(slot) + r, x0 + r % w, y0 + r // w, g) for r in range(k)]
+        slot += [i] * k
+        gauss += [g] * k
+        tile += tiles
+    tile = np.asarray(tile, np.int64)
+    if culled:
+        pos, tx, ty, g = (np.asarray(c) for c in zip(*culled))
+        reach = np.asarray(_tile_reachable(
+            jnp.asarray((tx * tile_size).astype(np.float32)),
+            jnp.asarray((ty * tile_size).astype(np.float32)), float(tile_size),
+            *(jnp.asarray(cull[g, k]) for k in range(6))))
+        tile[pos[~reach]] = num_tiles
+    return np.asarray(slot), np.asarray(gauss), tile
+
+
+@pytest.mark.parametrize("case", K4_EDGE_CASES)
+def test_expand_bin_torch_on_edge_cases(case):
+    """The plain twin, which the gpu tests hold K4 to bit for bit, equals
+    expand_bin's contract written out slot by slot on each of their edge
+    cases, with the tiles culled by the JAX package's reachability test."""
+    args, kw = expand_case(case)
+    offsets, kept, depth_order, rect, n_pairs, grid_x = args
+    cull = kw["cull_fields"]
+    want = _expand_spec(offsets.numpy(), kept.numpy(), depth_order.numpy(), rect.numpy(),
+                        grid_x, kw["tile_size"], kw["num_tiles"],
+                        None if cull is None else cull.numpy())
+    got = expand.expand_bin_torch(*args, **kw)
+    assert got[0].shape == (n_pairs,)
+    for name, g, w in zip(("slot", "gauss", "tile"), got, want):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    np.testing.assert_array_equal(got[3].numpy(), (want[2] << 32) | want[0])
+    if case == "full_view_rect":  # the whole-view rect is culled tile by tile
+        assert (want[2][want[1] == int(depth_order[100])] == kw["num_tiles"]).any()
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +417,25 @@ def test_segsum_matches_pallas(n_segments, n_pairs, f, seed):
     np.testing.assert_array_equal(got[counts == 0], 0.0)
 
 
+@pytest.mark.parametrize("case", SEGSUM_CASES)
+def test_segsum_torch_on_edge_cases(case):
+    """The plain twin, which the gpu tests hold K3 to, within 1e-5 of each
+    sum of |terms| of a float64 sum per segment on each of their edge
+    cases, exact zeros for empty segments; and each case is what it says."""
+    vals, offsets, counts = segsum_case(case)
+    got = segsum.segsum_torch(vals, offsets, counts).numpy()
+    v, o, c = vals.numpy().astype(np.float64), offsets.numpy(), counts.numpy()
+    prefix = np.concatenate([np.zeros((1, v.shape[1])), np.cumsum(v, axis=0)])
+    abs_prefix = np.concatenate([np.zeros((1, v.shape[1])), np.cumsum(np.abs(v), axis=0)])
+    want = prefix[o + c] - prefix[o]
+    abs_sum = abs_prefix[o + c] - abs_prefix[o]
+    np.testing.assert_array_less(np.abs(got - want), 1e-5 * abs_sum + 1e-30)
+    np.testing.assert_array_equal(got[c == 0], 0.0)
+    assert got.shape == (c.shape[0], 13 if case.startswith("f13") else 10)
+    assert int(c.max()) == {"long_segment": 10_000, "all_empty": 0}.get(case, 200)
+    assert (vals.data_ptr() % 16 == 0) == (case != "f13_unaligned")
+
+
 # ---------------------------------------------------------------------------
 # The wrappers: plain version only for CPU tensors
 # ---------------------------------------------------------------------------
@@ -338,7 +455,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     idx = torch.zeros(2, dtype=torch.int64)
     small = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        expand.expand_bin_cuda(idx, idx, idx, small, small, small, 0, 2)
+        expand.expand_bin_cuda(idx, idx, idx, torch.zeros((2, 4), dtype=torch.int32), 0, 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
         expand.expand_slots_cuda(small, 512)
     out = blend.blend_forward(feats, ranges, 2, 2, 16, 4)

@@ -11,14 +11,30 @@
 //     with culling on it becomes tile `num_tiles` (sorted past every tile
 //     range) when alpha cannot reach 1/255 anywhere inside that tile.
 //
-// Design.  One thread per depth-ranked Gaussian writes its pairs from
-// offsets[i] on, the shape of the CUDA 3DGS duplicateWithKeys stage; the
-// TPU's windowed merge scan and one-hot field select do not carry over.
+// Design: pair-parallel and load-balanced, the "expand" pattern of CUB
+// and moderngpu.  The grid spans the pairs, never the slot capacity: block
+// b owns pairs [512 b, 512 (b + 1)), one per thread twice over, so
+// consecutive threads write consecutive pairs of every output.  (Two pairs
+// a thread are as fast as four at a million pairs and spread a training
+// view's 26k pairs over twice the SMs; one a thread is 9% slower at a
+// million.)  Two warps find the block's first and last slot in the
+// monotone offsets with a 32-way search (4 rounds of one load per lane
+// over a million slots).  The block then stages the slots its range spans
+// in shared memory, one coalesced offset and id and one 16-byte (x0, y0,
+// w, mask) row per live Gaussian, and each thread binary-searches the
+// staged offsets for its pair's slot.  The r-th set bit of a mask comes
+// from five popcount halvings, not a walk over the earlier pairs.  The
+// cull fields are read only for a rect with no mask.  Offsets whose span
+// exceeds the stage (runs of empty slots inside the pair range, which
+// binning never makes) are searched in device memory instead; the result
+// is the same.
+//
 // The file is compiled with -fmad=false so the reachability test rounds
 // exactly as the plain torch version does.
 //
-// Bound on the H100: bytes (20 bytes written per pair); pair counts vary
-// per Gaussian, so a thread with a large rect writes many pairs alone.
+// Bound on the H100: bytes (each live slot's offset, id and fields read
+// once, 20 bytes written per pair); the searches' dependent loads set the
+// floor of a small launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,6 +43,11 @@ namespace {
 
 constexpr float kAlphaMin = 0.003921568859368563f;  // float32(1 / 255)
 constexpr int kMaskNone = 1 << 24;
+constexpr unsigned kMaskBits = (1u << 24) - 1u;  // bits a mask may set (MASK_K = 24)
+constexpr int kExpandThreads = 256;
+constexpr int kPairsPerThread = 2;
+constexpr int kPairsPerBlock = kExpandThreads * kPairsPerThread;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
@@ -52,68 +73,137 @@ __device__ __forceinline__ bool tile_reachable(float x0, float y0, float ts, flo
   return opa * expf(-0.5f * qmin) >= kAlphaMin;
 }
 
-__global__ void expand_kernel(const long long* __restrict__ offsets,
-                              const long long* __restrict__ counts,
-                              const long long* __restrict__ depth_order,
-                              const int* __restrict__ x0s, const int* __restrict__ y0s,
-                              const int* __restrict__ rect_w,
-                              const float* __restrict__ cull,  // (N, 6) or null
-                              const int* __restrict__ masks,   // (N,) or null
-                              int* __restrict__ slot_out, int* __restrict__ gauss_out,
-                              int* __restrict__ tile_out, long long* __restrict__ key_out,
-                              long long n, int grid_x, int tile_size, int num_tiles) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long c = counts[i];
-  if (c <= 0) return;
-  const long long base = offsets[i];
-  const long long g = depth_order[i];
-  const int x0 = x0s[g];
-  const int y0 = y0s[g];
-  const int w = max(rect_w[g], 1);
-  const int m = masks != nullptr ? masks[g] : kMaskNone;
-  if (m != kMaskNone) {
-    unsigned bits = (unsigned)m;
-    for (long long r = 0; r < c; ++r) {
-      int tile = num_tiles;
-      if (bits != 0u) {
-        const int j = __ffs(bits) - 1;
-        bits &= bits - 1u;
-        tile = (y0 + j / w) * grid_x + x0 + j % w;
-      }
-      const long long p = base + r;
-      slot_out[p] = (int)i;
-      gauss_out[p] = (int)g;
-      tile_out[p] = tile;
-      key_out[p] = ((long long)tile << 32) | i;
+// The last i in [lo, hi) with a[i] <= p, or lo when there is none: the
+// slot that owns pair p in monotone exclusive offsets.  K4 searches its
+// staged offsets with it (and device memory for an oversized span), K6
+// the whole offsets array.
+template <typename T, typename I, typename V>
+__device__ __forceinline__ I last_at_most(const T* a, I lo, I hi, V p) {
+  while (hi - lo > 1) {
+    const I mid = lo + (hi - lo) / 2;
+    if ((V)a[mid] <= p) {
+      lo = mid;
+    } else {
+      hi = mid;
     }
-    return;
   }
-  float mx = 0.f, my = 0.f, ca = 0.f, cb = 0.f, cc = 0.f, opa = 0.f;
-  if (cull != nullptr) {
-    const float* cf = cull + g * 6;
-    mx = cf[0];
-    my = cf[1];
-    ca = cf[2];
-    cb = cf[3];
-    cc = cf[4];
-    opa = cf[5];
+  return lo;
+}
+
+// The same search by a whole warp, 32 ways a round: every lane loads one
+// candidate and the ballot keeps the last interval whose first offset is
+// <= p.  All lanes return the result.
+__device__ __forceinline__ long long warp_last_at_most(const long long* __restrict__ a,
+                                                       long long n, long long p) {
+  const int lane = threadIdx.x & 31;
+  long long lo = 0;
+  long long hi = n;  // the answer lies in [lo, hi); a[lo] <= p or lo == 0
+  while (hi - lo > 1) {
+    const long long step = (hi - lo + 31) / 32;
+    const long long idx = lo + lane * step;
+    const bool le = lane == 0 || (idx < hi && __ldg(a + idx) <= p);
+    const unsigned votes = __ballot_sync(kFull, le);
+    lo += (31 - __clz(votes)) * step;
+    hi = min(hi, lo + step);
   }
+  return lo;
+}
+
+// Position of the (r+1)-th set bit of m, or -1 when m has fewer bits.
+__device__ __forceinline__ int nth_set_bit(unsigned m, int r) {
+  int pos = 0;
+#pragma unroll
+  for (int width = 16; width >= 1; width >>= 1) {
+    const unsigned low = m & ((1u << width) - 1u);
+    const int c = __popc(low);
+    if (r >= c) {
+      r -= c;
+      m >>= width;
+      pos += width;
+    } else {
+      m = low;
+    }
+  }
+  return ((m & 1u) != 0u && r == 0) ? pos : -1;
+}
+
+__global__ void __launch_bounds__(kExpandThreads) expand_kernel(
+    const long long* __restrict__ offsets, const long long* __restrict__ depth_order,
+    const int4* __restrict__ rect,     // (N,) [x0, y0, w, mask]
+    const float* __restrict__ cull,    // (N, 6) or null
+    int* __restrict__ slot_out, int* __restrict__ gauss_out, int* __restrict__ tile_out,
+    long long* __restrict__ key_out, long long n, long long n_pairs, int grid_x,
+    int tile_size, int num_tiles) {
+  __shared__ long long s_bounds[2];
+  __shared__ int s_rel[kPairsPerBlock];    // offsets[s0 + j] - p0
+  __shared__ int s_gauss[kPairsPerBlock];  // depth_order[s0 + j]
+  __shared__ int4 s_rect[kPairsPerBlock];  // rect[depth_order[s0 + j]]
+
+  const long long p0 = (long long)blockIdx.x * kPairsPerBlock;
+  const long long p_last = min(p0 + kPairsPerBlock, n_pairs) - 1;
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const long long s = warp_last_at_most(offsets, n, warp == 0 ? p0 : p_last);
+    if ((threadIdx.x & 31) == 0) s_bounds[warp] = s;
+  }
+  __syncthreads();
+  const long long s0 = s_bounds[0];
+  const long long s1 = s_bounds[1];
+  const long long span = s1 - s0 + 1;
+  const bool staged = span <= kPairsPerBlock;
+  if (staged) {
+    for (int j = threadIdx.x; j < (int)span; j += kExpandThreads) {
+      const long long g = __ldg(depth_order + s0 + j);
+      s_rel[j] = (int)(__ldg(offsets + s0 + j) - p0);
+      s_gauss[j] = (int)g;
+      s_rect[j] = __ldg(rect + g);
+    }
+  }
+  __syncthreads();
+
   const float tsf = (float)tile_size;
-  for (long long r = 0; r < c; ++r) {
-    const int q = (int)(r / w);
-    const int rem = (int)(r % w);
-    const int tx = x0 + rem;
-    const int ty = y0 + q;
-    int tile = ty * grid_x + tx;
-    if (cull != nullptr &&
-        !tile_reachable((float)(tx * tile_size), (float)(ty * tile_size), tsf, mx, my, ca,
-                        cb, cc, opa)) {
-      tile = num_tiles;
+#pragma unroll
+  for (int k = 0; k < kPairsPerThread; ++k) {
+    const int q = k * kExpandThreads + threadIdx.x;  // pair p0 + q
+    const long long p = p0 + q;
+    if (p > p_last) break;
+    long long i;
+    int r, g;
+    int4 rc;
+    if (staged) {
+      const int j = last_at_most(s_rel, 0, (int)span, q);
+      i = s0 + j;
+      r = q - s_rel[j];
+      g = s_gauss[j];
+      rc = s_rect[j];
+    } else {
+      i = last_at_most(offsets, s0, s1 + 1, p);
+      r = (int)(p - offsets[i]);
+      g = (int)depth_order[i];
+      rc = __ldg(rect + g);
     }
-    const long long p = base + r;
+    const int w = max(rc.z, 1);
+    int tile;
+    if (rc.w != kMaskNone) {
+      const int bit = nth_set_bit((unsigned)rc.w & kMaskBits, r);
+      tile = bit < 0 ? num_tiles : (rc.y + bit / w) * grid_x + rc.x + bit % w;
+    } else {
+      const int tx = rc.x + r % w;
+      const int ty = rc.y + r / w;
+      tile = ty * grid_x + tx;
+      if (cull != nullptr) {
+        const float2* cf = reinterpret_cast<const float2*>(cull + (long long)g * 6);
+        const float2 m = __ldg(cf);
+        const float2 ab = __ldg(cf + 1);
+        const float2 co = __ldg(cf + 2);
+        if (!tile_reachable((float)(tx * tile_size), (float)(ty * tile_size), tsf, m.x, m.y,
+                            ab.x, ab.y, co.x, co.y)) {
+          tile = num_tiles;
+        }
+      }
+    }
     slot_out[p] = (int)i;
-    gauss_out[p] = (int)g;
+    gauss_out[p] = g;
     tile_out[p] = tile;
     key_out[p] = ((long long)tile << 32) | i;
   }
@@ -126,10 +216,11 @@ __global__ void expand_kernel(const long long* __restrict__ offsets,
 // for every pair position p < max_pairs, the last i with offsets[i] <= p
 // (0 when there is none, N == 0 included), for monotone offsets.
 //
-// Design.  One thread per pair position binary-searches the offsets.  The
-// TPU kernel counts offsets <= p inside a 768-entry window per 512-pair
-// program on its vector unit; a search has no window, so it is right for
-// every monotone input, runs of empty Gaussians of any length included.
+// Design.  One thread per pair position binary-searches the offsets
+// (last_at_most, K4's search).  The TPU kernel counts offsets <= p inside
+// a 768-entry window per 512-pair program on its vector unit; a search
+// has no window, so it is right for every monotone input, runs of empty
+// Gaussians of any length included.
 //
 // Bound on the H100: bytes (the offsets read once, 4 B per output); the
 // search's ~log2(N) dependent loads per thread hit the L2 cache.
@@ -137,18 +228,7 @@ __global__ void expand_slots_kernel(const int* __restrict__ offsets, int* __rest
                                     long long n, long long max_pairs) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= max_pairs) return;
-  // invariant: offsets[lo] <= p or lo == 0; offsets[hi] > p or hi == n
-  long long lo = 0;
-  long long hi = n;
-  while (hi - lo > 1) {
-    const long long mid = lo + (hi - lo) / 2;
-    if ((long long)__ldg(offsets + mid) <= p) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
-  }
-  slot_out[p] = (int)lo;
+  slot_out[p] = (int)last_at_most(offsets, 0LL, n, p);
 }
 
 }  // namespace
@@ -166,22 +246,22 @@ int expand_slots(const void* offsets, void* slot, long long n, long long max_pai
   return (int)cudaGetLastError();
 }
 
-// offsets, counts, depth_order (N,) i64 in depth order (counts already
-// clipped to the pair capacity); x0, y0, rect_w, masks (N,) i32 and cull
-// (N, 6) f32 [mx, my, ca, cb, cc, opa] in ORIGINAL Gaussian order; cull and
-// masks may be null.  Outputs (P,): slot/gauss/tile i32, key i64.
-int expand_bin(const void* offsets, const void* counts, const void* depth_order,
-               const void* x0, const void* y0, const void* rect_w, const void* cull,
-               const void* masks, void* slot, void* gauss, void* tile, void* key,
-               long long n, int grid_x, int tile_size, int num_tiles, void* stream) {
-  if (n == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  expand_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const long long*)offsets, (const long long*)counts, (const long long*)depth_order,
-      (const int*)x0, (const int*)y0, (const int*)rect_w, (const float*)cull,
-      (const int*)masks, (int*)slot, (int*)gauss, (int*)tile, (long long*)key, n, grid_x,
-      tile_size, num_tiles);
+// offsets, depth_order (N,) i64 in depth order, offsets the monotone
+// exclusive prefix of the full pair counts, so pair p < n_pairs belongs to
+// the last slot whose offset is <= p; rect (N, 4) i32 [x0, y0, w, mask]
+// (16-byte aligned) and cull (N, 6) f32 [mx, my, ca, cb, cc, opa] in
+// ORIGINAL Gaussian order; cull may be null.  Outputs (n_pairs,):
+// slot/gauss/tile i32, key i64.
+int expand_bin(const void* offsets, const void* depth_order, const void* rect,
+               const void* cull, void* slot, void* gauss, void* tile, void* key, long long n,
+               long long n_pairs, int grid_x, int tile_size, int num_tiles, void* stream) {
+  if (n_pairs == 0) return 0;
+  if (n == 0 || ((uintptr_t)rect & 15u) != 0u) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n_pairs + kPairsPerBlock - 1) / kPairsPerBlock;
+  expand_kernel<<<(unsigned)blocks, kExpandThreads, 0, (cudaStream_t)stream>>>(
+      (const long long*)offsets, (const long long*)depth_order, (const int4*)rect,
+      (const float*)cull, (int*)slot, (int*)gauss, (int*)tile, (long long*)key, n, n_pairs,
+      grid_x, tile_size, num_tiles);
   return (int)cudaGetLastError();
 }
 

@@ -49,8 +49,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "blend_forward": ("blend", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "blend_backward": ("blend", [_P] * 9 + [_LL, _I, _I, _I, _I, _P]),
-    "segsum_monotone": ("segsum", [_P, _P, _P, _P, _LL, _I, _P]),
-    "expand_bin": ("expand", [_P] * 12 + [_LL, _I, _I, _I, _P]),
+    "segsum_monotone": ("segsum", [_P, _P, _P, _P, _LL, _I, _LL, _P]),
+    "expand_bin": ("expand", [_P] * 8 + [_LL, _LL, _I, _I, _I, _P]),
     "expand_slots": ("expand", [_P, _P, _LL, _LL, _P]),
     "flash_attention_forward": ("flash_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
 }

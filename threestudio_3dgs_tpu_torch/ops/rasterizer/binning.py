@@ -10,7 +10,8 @@ Port of the unpacked path of the JAX package's
   2. one stable depth sort of the Gaussians, zero-count Gaussians at +inf;
   3. pair buffers sized from the exact total each frame (one host read),
      with ``max_pairs`` as the ceiling beyond which the deepest pairs drop;
-  4. expand (kernel K4) writing (slot, Gaussian, tile, key) per pair;
+  4. expand (kernel K4) writing (slot, Gaussian, tile, key) per pair, from
+     one packed (x0, y0, w, mask) row per Gaussian;
   5. one sort of the int64 keys (tile << 32) | depth_rank and the tile
      ranges by ``searchsorted``.
 
@@ -29,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from .expand import MASK_K, MASK_NONE, expand_bin, tile_reachable
+from .expand import MASK_K, MASK_NONE, expand_bin, pack_rect, tile_reachable
 from .preprocess import Projected
 from .segsum import segsum_monotone
 
@@ -43,11 +44,10 @@ class PairPlan(NamedTuple):
     offsets: torch.Tensor  # (N,) int64 exclusive pair offsets, depth order
     kept: torch.Tensor  # (N,) int64 pairs kept per Gaussian, depth order
     depth_order: torch.Tensor  # (N,) int64 Gaussian indices sorted by depth
-    x0: torch.Tensor  # (N,) int32 tile rect min x, original order
-    y0: torch.Tensor  # (N,) int32 tile rect min y, original order
-    rect_w: torch.Tensor  # (N,) int32 tile rect width, original order
+    # (N, 4) int32 [tile rect min x, min y, width, reachable-tile bitmask
+    # or MASK_NONE], original order: one 16-byte row per Gaussian
+    rect: torch.Tensor
     cull_fields: torch.Tensor  # (N, 6) f32 [mx, my, ca, cb, cc, opa]
-    mask: torch.Tensor  # (N,) int32 reachable-tile bitmask or MASK_NONE
     n_pairs: int  # pairs kept (<= max_pairs)
     n_dropped: int  # pairs dropped for capacity
     grid_x: int
@@ -57,9 +57,9 @@ class PairPlan(NamedTuple):
     def expand(self, fn=expand_bin):
         """Run the pair expansion (``expand_bin`` or one of its versions)."""
         return fn(
-            self.offsets, self.kept, self.depth_order, self.x0, self.y0,
-            self.rect_w, self.n_pairs, self.grid_x, tile_size=self.tile_size,
-            num_tiles=self.num_tiles, cull_fields=self.cull_fields, mask=self.mask,
+            self.offsets, self.kept, self.depth_order, self.rect, self.n_pairs,
+            self.grid_x, tile_size=self.tile_size, num_tiles=self.num_tiles,
+            cull_fields=self.cull_fields,
         )
 
 
@@ -122,11 +122,8 @@ def plan_pairs(
         offsets=offsets,
         kept=torch.minimum(counts, torch.clamp_min(n_pairs - offsets, 0)),
         depth_order=depth_order,
-        x0=tmin[:, 0].int().contiguous(),
-        y0=tmin[:, 1].int().contiguous(),
-        rect_w=rect_w.int().contiguous(),
+        rect=pack_rect(tmin[:, 0], tmin[:, 1], rect_w, mask),
         cull_fields=torch.cat([means2d, conics, opa[:, None]], dim=1).contiguous(),
-        mask=mask.int().contiguous(),
         n_pairs=n_pairs,
         n_dropped=total - n_pairs,
         grid_x=grid_x,

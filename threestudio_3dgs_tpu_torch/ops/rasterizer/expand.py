@@ -15,10 +15,12 @@ and the int64 tile-sort key ``(tile << 32) | slot``:
     with cull fields it becomes tile ``num_tiles`` when alpha cannot reach
     1/255 anywhere in that tile.
 
-Rect, cull and mask fields are indexed by ORIGINAL Gaussian id.
-``expand_bin`` takes the plain twin for CPU tensors and launches the kernel
-for CUDA tensors.  K6 (``expand_slots``, port of ``expand_slots_pallas``)
-is the slot column alone, from int32 offsets; it routes the same way.
+The rect and mask fields are one (N, 4) int32 row per Gaussian
+(``pack_rect``: x0, y0, w, mask), the cull fields (N, 6) f32, both indexed
+by ORIGINAL Gaussian id.  ``expand_bin`` takes the plain twin for CPU
+tensors and launches the kernel for CUDA tensors.  K6 (``expand_slots``,
+port of ``expand_slots_pallas``) is the slot column alone, from int32
+offsets; it routes the same way.
 """
 
 from __future__ import annotations
@@ -66,10 +68,15 @@ def select_nth_set_bit(m: torch.Tensor, r: torch.Tensor):
     return jsel, cum >= target
 
 
+def pack_rect(x0, y0, rect_w, mask) -> torch.Tensor:
+    """The per-Gaussian fields K4 reads, one 16-byte row per Gaussian:
+    (N, 4) int32 [x0, y0, w, mask]."""
+    return torch.stack([x0, y0, rect_w, mask], dim=1).to(torch.int32)
+
+
 def expand_bin_torch(
-    offsets, counts, depth_order, x0, y0, rect_w, n_pairs: int, grid_x: int,
-    tile_size: int = 0, num_tiles: int = 0,
-    cull_fields: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+    offsets, counts, depth_order, rect, n_pairs: int, grid_x: int,
+    tile_size: int = 0, num_tiles: int = 0, cull_fields: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of K4 (the repeat_interleave form).  Returns
     (slot, gauss, tile) int32 and key int64, each (n_pairs,)."""
@@ -78,9 +85,11 @@ def expand_bin_torch(
     slot = torch.repeat_interleave(torch.arange(n, device=device), counts)[:n_pairs]
     g = depth_order[slot]
     r = torch.arange(slot.shape[0], device=device) - offsets[slot]
-    w = torch.clamp_min(rect_w[g].long(), 1)
-    tx = x0[g].long() + r % w
-    ty = y0[g].long() + r // w
+    fields = rect[g].long()
+    x0, y0, m = fields[:, 0], fields[:, 1], fields[:, 3]
+    w = torch.clamp_min(fields[:, 2], 1)
+    tx = x0 + r % w
+    ty = y0 + r // w
     tile = ty * grid_x + tx
     if cull_fields is not None:
         cf = cull_fields[g]
@@ -89,60 +98,59 @@ def expand_bin_torch(
             cf[:, 0], cf[:, 1], cf[:, 2], cf[:, 3], cf[:, 4], cf[:, 5],
         )
         tile = torch.where(keep, tile, torch.full_like(tile, num_tiles))
-    if mask is not None:
-        m = mask[g].long()
-        jsel, found = select_nth_set_bit(m, r)
-        tile_m = (y0[g].long() + jsel // w) * grid_x + x0[g].long() + jsel % w
-        tile_m = torch.where(found, tile_m, torch.full_like(tile_m, num_tiles))
-        tile = torch.where(m != MASK_NONE, tile_m, tile)
+    jsel, found = select_nth_set_bit(m, r)
+    tile_m = (y0 + jsel // w) * grid_x + x0 + jsel % w
+    tile_m = torch.where(found, tile_m, torch.full_like(tile_m, num_tiles))
+    tile = torch.where(m != MASK_NONE, tile_m, tile)
     key = (tile << 32) | slot
     return slot.int(), g.int(), tile.int(), key
 
 
 def expand_bin_cuda(
-    offsets, counts, depth_order, x0, y0, rect_w, n_pairs: int, grid_x: int,
-    tile_size: int = 0, num_tiles: int = 0,
-    cull_fields: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+    offsets, counts, depth_order, rect, n_pairs: int, grid_x: int,
+    tile_size: int = 0, num_tiles: int = 0, cull_fields: Optional[torch.Tensor] = None,
 ):
-    """K4 on the card: one thread per depth-ranked Gaussian writes its pairs."""
+    """K4 on the card: the grid spans the pairs, each block searching the
+    offsets for its slots.  It reads no counts: under ``expand_bin``'s
+    contract pair p < n_pairs belongs to the last slot whose offset is
+    <= p, which ``counts`` (checked here) only restates."""
     n = counts.shape[0]
     for t, name in ((offsets, "offsets"), (counts, "counts"), (depth_order, "depth_order")):
         native.check_cuda_tensor(t, name, torch.int64, 1)
-    for t, name in ((x0, "x0"), (y0, "y0"), (rect_w, "rect_w")):
-        native.check_cuda_tensor(t, name, torch.int32, 1)
+        if t.shape[0] != n:
+            raise ValueError(f"{name} must have {n} entries")
+    native.check_cuda_tensor(rect, "rect", torch.int32, 2)
+    if tuple(rect.shape) != (n, 4) or rect.data_ptr() % 16:
+        raise ValueError(f"rect must be ({n}, 4) and 16-byte aligned")
     if cull_fields is not None:
         native.check_cuda_tensor(cull_fields, "cull_fields", torch.float32, 2)
-        if tuple(cull_fields.shape) != (n, 6):
-            raise ValueError(f"cull_fields must be ({n}, 6)")
-    if mask is not None:
-        native.check_cuda_tensor(mask, "mask", torch.int32, 1)
+        if tuple(cull_fields.shape) != (n, 6) or cull_fields.data_ptr() % 8:
+            raise ValueError(f"cull_fields must be ({n}, 6) and 8-byte aligned")
     device = offsets.device
     slot = torch.empty(n_pairs, dtype=torch.int32, device=device)
     gauss = torch.empty_like(slot)
     tile = torch.empty_like(slot)
     key = torch.empty(n_pairs, dtype=torch.int64, device=device)
     native.launch(
-        "expand_bin", offsets.data_ptr(), counts.data_ptr(), depth_order.data_ptr(),
-        x0.data_ptr(), y0.data_ptr(), rect_w.data_ptr(),
+        "expand_bin", offsets.data_ptr(), depth_order.data_ptr(), rect.data_ptr(),
         None if cull_fields is None else cull_fields.data_ptr(),
-        None if mask is None else mask.data_ptr(),
         slot.data_ptr(), gauss.data_ptr(), tile.data_ptr(), key.data_ptr(),
-        n, grid_x, tile_size, num_tiles, native.stream_handle(device),
+        n, n_pairs, grid_x, tile_size, num_tiles, native.stream_handle(device),
     )
     return slot, gauss, tile, key
 
 
 def expand_bin(
-    offsets, counts, depth_order, x0, y0, rect_w, n_pairs: int, grid_x: int,
-    tile_size: int = 0, num_tiles: int = 0,
-    cull_fields: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+    offsets, counts, depth_order, rect, n_pairs: int, grid_x: int,
+    tile_size: int = 0, num_tiles: int = 0, cull_fields: Optional[torch.Tensor] = None,
 ):
-    """``counts`` must already be clipped so that the pairs fill exactly
+    """``offsets`` is the exclusive prefix of the full pair counts and
+    ``counts`` those counts clipped so that the pairs fill exactly
     [0, n_pairs): offsets[i] + counts[i] <= n_pairs."""
     fn = expand_bin_torch if offsets.device.type == "cpu" else expand_bin_cuda
     return fn(
-        offsets, counts, depth_order, x0, y0, rect_w, n_pairs, grid_x,
-        tile_size=tile_size, num_tiles=num_tiles, cull_fields=cull_fields, mask=mask,
+        offsets, counts, depth_order, rect, n_pairs, grid_x,
+        tile_size=tile_size, num_tiles=num_tiles, cull_fields=cull_fields,
     )
 
 

@@ -14,6 +14,8 @@ import torch
 
 from .. import native
 
+MAX_COLUMNS = 1024  # a K3 block holds its (segment, column) sums on chip (csrc/segsum.cu kItems)
+
 
 def segsum_torch(vals: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor):
     """Plain twin: ``index_add_`` of every row into its segment.  Rows past
@@ -27,18 +29,21 @@ def segsum_torch(vals: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor
 
 
 def segsum_cuda(vals: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor):
-    """K3 on the card: one thread per (segment, column), rows summed in
-    index order, no atomics."""
+    """K3 on the card: a block per run of consecutive segments streams their
+    rows through shared memory; one thread per (segment, column) sums them
+    in row order, no atomics."""
     native.check_cuda_tensor(vals, "vals", torch.float32, 2)
     native.check_cuda_tensor(offsets, "offsets", torch.int64, 1)
     native.check_cuda_tensor(counts, "counts", torch.int64, 1)
     if offsets.shape != counts.shape:
         raise ValueError("offsets and counts must have the same shape")
     n, f = counts.shape[0], vals.shape[1]
+    if f > MAX_COLUMNS:
+        raise ValueError(f"K3 takes at most {MAX_COLUMNS} columns, got {f}")
     out = torch.empty((n, f), dtype=torch.float32, device=vals.device)
     native.launch(
         "segsum_monotone", vals.data_ptr(), offsets.data_ptr(), counts.data_ptr(),
-        out.data_ptr(), n, f, native.stream_handle(vals.device),
+        out.data_ptr(), n, f, vals.shape[0], native.stream_handle(vals.device),
     )
     return out
 

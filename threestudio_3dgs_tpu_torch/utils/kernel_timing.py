@@ -1,0 +1,207 @@
+"""K1-K5 (``csrc/blend.cu``, ``csrc/segsum.cu``, ``csrc/expand.cu``,
+``csrc/flash_attention.cu``) of one tree of the port, timed alone on the
+card, for comparing two trees in turns on one card:
+
+    PYTHONPATH=TREE python3 threestudio_3dgs_tpu_torch/utils/kernel_timing.py [--iters 50]
+
+``TREE`` is the root of the tree whose package (and so whose kernels) is
+timed; the script itself may come from another tree, and calls only
+``PairPlan.expand``, ``segsum_inputs``, ``profiling.bench_scene``,
+``profiling.k5_inputs`` and the five ``*_cuda`` wrappers, which the trees
+before and after the K3 / K4 redesign share with the same signatures.  The inputs are the
+same in every tree: bench.py's scene (1M Gaussians, 512^2, tile 32, seed 0)
+and one view of ``gaussian_splatting.yaml``'s initial field (the config's
+seed, ``train_batch(0)``'s first camera, tile 32), each with a standard
+normal cotangent of the blend output (seeded); K3's rows are the pair
+gradients K2 makes from it, as a backward sorts them.
+
+Then K5 at the UNet's two bf16 self-attention shapes, (40, 4096, 64) and
+(80, 1024, 64), beside ``scaled_dot_product_attention``.
+
+For each input and kernel it prints two clocks of one call, each over
+``--iters`` back-to-back calls: ``ms``, the wrapper time (CUDA events,
+host work included), and ``device_ms``, the device time (one CUDA graph
+of the calls replayed between CUDA events: every kernel the call
+launches, no host work between them).  For K3 and K5 the same two clocks
+of the library call that computes their function
+(``torch.segment_reduce``, ``scaled_dot_product_attention``) as
+``library_ms`` and ``library_device_ms``.  Prints the card's name and
+power limit, then one JSON line.  Needs a CUDA device.
+
+``chip_smoke.py`` takes its clocks from here (``wrapper_ms``,
+``graph_ms``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+from typing import Callable, Dict
+
+import torch
+
+import threestudio_3dgs_tpu_torch as port
+
+
+def wrapper_ms(fn: Callable[[], object], iters: int, warmup: int = 1) -> float:
+    """Mean time of one call over `iters` back-to-back calls, CUDA events
+    (the host's work between launches included)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn: Callable[[], object], iters: int) -> float:
+    """Mean time of one call in a CUDA graph of `iters` calls, replayed
+    between two CUDA events: the device's time with no host work between
+    the launches (every kernel of the call, fills included)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def time_call(call, iters: int, prefix: str = "") -> Dict[str, float]:
+    """The call's wrapper and device (graph replay) times."""
+    return {f"{prefix}ms": wrapper_ms(call, iters), f"{prefix}device_ms": graph_ms(call, iters)}
+
+
+def train_view_scene(run_dir: str, device="cuda"):
+    """One camera of the YAML's first training batch over its initial field."""
+    from threestudio_3dgs_tpu_torch.models import gaussian_field as gf
+    from threestudio_3dgs_tpu_torch.ops import camera as cam_ops
+    from threestudio_3dgs_tpu_torch.ops.rasterizer.preprocess import sh_colors
+    from threestudio_3dgs_tpu_torch.trainer import Trainer
+    from threestudio_3dgs_tpu_torch.utils.config import load_config
+
+    config = os.path.join(os.path.dirname(port.__file__), "configs", "gaussian_splatting.yaml")
+    cfg = load_config(config, ["system.guidance_type=fake-sds-guidance", f"exp_root_dir={run_dir}"])
+    trainer = Trainer(cfg, device=device)
+    gauss = trainer.system.init_state(cfg.seed).gauss
+    batch = trainer.data.train_batch(0)
+    fovy = float(batch["fovy"][0])
+    cam = cam_ops.camera_from_c2w(batch["c2w"][0], fovy, fovy, int(batch["height"]),
+                                  int(batch["width"]), device=device)
+    p = gauss.params
+    with torch.no_grad():
+        colors = sh_colors(p.xyz, gf.get_features(p), cam.campos, 0)
+        return dict(means=p.xyz, scales=gf.get_scaling(p), quats=p.rotation,
+                    opac=gf.get_opacity(p)[:, 0], colors=colors, cam=cam, alive=gauss.alive,
+                    tile_size=trainer.system.renderer.cfg.tile_size)
+
+
+def view_inputs(scene, seed: int, device="cuda"):
+    """K1-K4's inputs for one view, as ``rasterize`` makes them: the pair
+    plan, K1's and K2's pair rows, ranges and cotangent, and K3's rows,
+    offsets and counts from K2's pair gradients."""
+    from threestudio_3dgs_tpu_torch.ops.rasterizer import binning, blend, preprocess
+
+    cam, ts = scene["cam"], scene["tile_size"]
+    gx, gy = (cam.width + ts - 1) // ts, (cam.height + ts - 1) // ts
+    with torch.no_grad():
+        proj = preprocess.project_gaussians(scene["means"], scene["scales"], scene["quats"], cam,
+                                            ts, alive=scene["alive"])
+        plan = binning.plan_pairs(proj, gx, gy, 2**21, ts, scene["opac"])
+        bins = binning.bin_gaussians(proj, gx, gy, 2**21, ts, scene["opac"])
+        channels = torch.cat([scene["colors"], proj.depths[:, None]], dim=1)
+        feats = torch.cat([proj.means2d, proj.conics, scene["opac"][:, None], channels], dim=1)
+        pair_feats = feats[bins.pair_gauss].contiguous()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        dims = (gx, gy, ts, channels.shape[1])
+        g_out = torch.randn((gx * gy, ts * ts, channels.shape[1] + 1), generator=gen,
+                            device=device)
+        out = blend.blend_forward_cuda(pair_feats, bins.tile_ranges, *dims)
+        d_pairs = blend.blend_backward_cuda(pair_feats, bins.tile_ranges, out, g_out, *dims)
+        seg = binning.segsum_inputs(bins, d_pairs)
+    if bins.n_dropped:
+        raise RuntimeError(f"{bins.n_dropped} pairs dropped")
+    return dict(plan=plan, bins=bins, pair_feats=pair_feats, out=out, g_out=g_out, seg=seg,
+                dims=dims)
+
+
+def kernel_calls(inp):
+    """name -> (the kernel's wrapper call, the library call or None)."""
+    from threestudio_3dgs_tpu_torch.ops.rasterizer import blend, expand, segsum
+
+    pf, out, g_out, dims = (inp[k] for k in ("pair_feats", "out", "g_out", "dims"))
+    ranges = inp["bins"].tile_ranges
+    vals, offs, counts = inp["seg"]
+    return {
+        "blend_forward": (lambda: blend.blend_forward_cuda(pf, ranges, *dims), None),
+        "blend_backward": (lambda: blend.blend_backward_cuda(pf, ranges, out, g_out, *dims), None),
+        "segsum_monotone": (
+            lambda: segsum.segsum_cuda(vals, offs, counts),
+            lambda: torch.segment_reduce(vals, "sum", lengths=counts, axis=0, unsafe=True)),
+        "expand_bin": (lambda: inp["plan"].expand(expand.expand_bin_cuda), None),
+    }
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--iters", type=int, default=50)
+    parser.add_argument("--run-dir", default=os.path.join("outputs", "kernel_timing"))
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel timing needs a CUDA device")
+    from threestudio_3dgs_tpu_torch.utils.profiling import bench_scene
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    result = {"package": os.path.dirname(port.__file__), "inputs": {}}
+    for name, make in (("train", lambda: train_view_scene(args.run_dir)),
+                       ("bench", lambda: bench_scene("cuda"))):
+        inp = view_inputs(make(), seed=2)
+        row = {"pairs": int(inp["pair_feats"].shape[0]),
+               "live_slots": int((inp["plan"].kept > 0).sum())}
+        with torch.no_grad():
+            for kernel, (call, library) in kernel_calls(inp).items():
+                row[kernel] = time_call(call, args.iters)
+                if library is not None:
+                    row[kernel].update(time_call(library, args.iters, "library_"))
+        result["inputs"][name] = row
+        del inp
+        torch.cuda.empty_cache()
+    # K5 at the UNet's two self-attention shapes, beside SDPA
+    import torch.nn.functional as F
+
+    from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
+    from threestudio_3dgs_tpu_torch.utils.profiling import k5_inputs
+
+    for bh, n in ((40, 4096), (80, 1024)):
+        q, k, v = k5_inputs(bh, n, torch.bfloat16, seed=20)
+        with torch.no_grad():
+            row = time_call(lambda: fa.flash_bhnd_cuda(q, k, v, 0.125), args.iters)
+            row.update(time_call(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], scale=0.125), args.iters, "library_"))
+        result["inputs"][f"k5_{bh}x{n}x64"] = {"flash_attention_forward": row}
+        del q, k, v
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()
