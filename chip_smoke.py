@@ -51,25 +51,45 @@ Phases, each of which fails the run with a non-zero exit:
      time on the final field (CUDA events);
   7. Stable Diffusion guidance: write a seeded random-init checkpoint
      directory with the published stabilityai/stable-diffusion-2-1-base
-     UNet and VAE architectures (diffusers layout, f32 .bin) under
-     outputs/chip_smoke/; hold K5 (flash attention) against its plain
-     version at the UNet's self-attention shapes, (40, 4096, 64) and (80,
-     1024, 64) in bf16 (the wgmma kernel, to 2^-6 of max|plain|, two bf16
-     ulps), at (40, 4096, 64) with keys in rising norm (the running max
-     grows in every key tile) and at a ragged (40, 1000, 64) in bf16, and
-     at (16, 1024, 64) in f32 (the CUDA-core kernel, 2e-5), and the
-     guidance on a tiny random directory
-     on the card against its CPU run; train the YAML with its own
-     ``stable-diffusion-guidance`` pointed at that directory for 10 steps
+     UNet, VAE and text encoder architectures (diffusers layout, f32 .bin)
+     and a synthetic CLIP tokenizer under outputs/chip_smoke/; hold K5
+     (flash attention) against its plain version at the UNet's
+     self-attention shapes, (40, 4096, 64) and (80, 1024, 64) in bf16 (the
+     wgmma kernel, to 2^-6 of max|plain|, two bf16 ulps), at (40, 4096, 64)
+     with keys in rising norm (the running max grows in every key tile) and
+     at a ragged (40, 1000, 64) in bf16, and in f32 (the CUDA-core kernel,
+     2e-5) at (16, 1024, 64) and at MVDream's two shapes, (10, 4096, 64)
+     and (20, 1024, 64); hold the SD guidance on a tiny random directory
+     and the CLIP text encoder on a tiny random directory on the card
+     against their CPU runs; train gaussian_splatting.yaml with its own
+     ``stable-diffusion-guidance`` pointed at the SD directory for 10 steps
      (bf16 UNet and VAE, the CFG batch of 8), counters zeroed just before:
      every loss finite, grad_norm > 0, K1-K4 launched and K5 launched
      exactly 5 times per step at each of the two shapes; then time K5
      there beside its plain version, ``scaled_dot_product_attention`` and
      its bound, with its TFLOP/s and share of the bound;
-  8. print the per-kernel JSON line (launches from the training runs, K6's
+  8. the lit and multi-view YAMLs, 10 steps each through ``launch.main``
+     (8 test renders after), counters zeroed just before each: (a)
+     gaussian_splatting_shading.yaml with its own SD guidance and CLIP
+     prompts on the SD directory (512^2, B = 4, bf16; ambient-only for 5
+     steps, lit after); (b) gaussian_splatting_mvdream.yaml with
+     ``mvdream-multiview-diffusion-guidance`` on a freshly written seeded
+     random MVDream directory (the published UNet with the 4-view fold and
+     camera MLP, f32 as the JAX guidance builds it; 256^2, 4 views, CFG
+     batch 8; CLIP prompts; ambient-only for 5 steps; the background
+     augmented with probability 0.5, not 0.95, so that it trains); (c)
+     gaussian_splatting_background.yaml with fake SDS (512^2, B = 4).  Each
+     fails unless every logged loss is finite, grad_norm > 0, K1-K4
+     launched, K5 launched 5 times a step at exactly its shapes ((a): the
+     two bf16 ones; (b): (10, 4096, 64) and (20, 1024, 64) in f32; (c):
+     none) and the background MLP moved; then K1-K4 are held and timed at
+     one 256^2 view of the trained MVDream field, and K5 timed in f32 at
+     MVDream's shapes;
+  9. print the per-kernel JSON line (launches from the training runs, K6's
      from its checks; times at the main path's shapes, K6's at the bench
-     scene; one K5 row per shape; ``ms`` and ``library_ms`` wrapper times,
-     ``device_ms`` and ``library_device_ms`` device times), then
+     scene; K1-K4 rows at the trained 512^2 view and at the MVDream view;
+     one K5 row per shape and type; ``ms`` and ``library_ms`` wrapper
+     times, ``device_ms`` and ``library_device_ms`` device times), then
      ``{"ok": true, ...}`` last.
 
 Nothing is caught and passed over: the first failure ends the run.
@@ -94,10 +114,38 @@ SD_STEPS = 10
 FULL_STEPS = 40
 FULL_MAX_NUM = 10000
 FULL_STRUCTURAL_STEPS = (10, 20, 30)  # densify, densify + opacity reset, cap-prune
+CONFIG_DIR = os.path.join(ROOT, "threestudio_3dgs_tpu_torch", "configs")
+SHADING_CONFIG = os.path.join(CONFIG_DIR, "gaussian_splatting_shading.yaml")
+MVDREAM_CONFIG = os.path.join(CONFIG_DIR, "gaussian_splatting_mvdream.yaml")
+BACKGROUND_CONFIG = os.path.join(CONFIG_DIR, "gaussian_splatting_background.yaml")
+MV_DIR = os.path.join(RUN_DIR, "mvdream-random")
+LIT_STEPS = 10
+# the lit runs' ambient-only warm-up: half their steps (the YAMLs' 2000 and
+# 3000 would keep all 10 steps on the albedo)
+AMBIENT_ONLY_STEPS = 5
 # K5's shapes on the main path (SD 2.1-base at 512^2, CFG batch 8: 5 heads of
 # 4096 tokens, 10 of 1024) and its launches at each per UNet call
 K5_SHAPES = ((40, 4096), (80, 1024))
 K5_PER_SHAPE_PER_UNET_CALL = 5
+# MVDream at 256^2, CFG batch 8 = 2 halves x 4 views, the views of a half
+# folded into one sequence: 2 x 5 heads of 4 x 32^2 tokens and 2 x 10 of
+# 4 x 16^2, in f32 (K5's CUDA-core kernel)
+K5_MV_SHAPES = ((10, 4096), (20, 1024))
+# the synthetic tokenizer's merges come from these lines
+TOKENIZER_CORPUS = (
+    "a hamburger, a DSLR photo of a delicious hamburger on a wooden plate. a zoomed out "
+    "photo of a pineapple wearing sunglasses; a cat's hat, front view, side view, back view, "
+    "overhead view. an astronaut riding a horse on the moon, highly detailed 3d render, "
+    "8k, trending on artstation; a small saguaro cactus planted in a clay pot. "
+    "a beautiful rainbow fish swimming in a coral reef, studio lighting, ultra realistic; "
+    "a blue poison-dart frog sitting on a water lily, macro photography, shallow depth of "
+    "field. a ripe strawberry with green leaves, isolated on a white background; an "
+    "intricate wooden carving of a squirrel reading a book, cinematic composition. a "
+    "majestic eagle perched on a snowy mountain peak at sunrise, golden hour, volumetric "
+    "fog; a tiger dressed as a doctor, digital painting, sharp focus, vibrant colors. a "
+    "stack of pancakes covered in maple syrup and fresh blueberries, food photography; a "
+    "vintage red bicycle leaning against a brick wall, overcast weather, soft shadows."
+)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 (non-tensor) and
 # bf16 dense tensor-core FLOP/s
@@ -150,7 +198,8 @@ KERNELS = {
 # profiling.k5_tolerance
 K5_CHECKS = ((40, 4096, "bfloat16", False), (80, 1024, "bfloat16", False),
              (40, 4096, "bfloat16", True), (40, 1000, "bfloat16", False),
-             (16, 1024, "float32", False))
+             (16, 1024, "float32", False), (10, 4096, "float32", False),
+             (20, 1024, "float32", False))
 
 
 def log(msg):
@@ -623,19 +672,132 @@ def full_run(torch, native):
 
 
 def write_sd_checkpoint(torch):
+    """The SD 2.1-base UNet and VAE, and its text encoder with a synthetic
+    tokenizer (the byte symbols, the merges learned from a few lines of
+    prompts, up to 400, pad "!" as SD 2.x directories have it)."""
     from threestudio_3dgs_tpu_torch.diffusion.convert import write_random_checkpoint
+    from threestudio_3dgs_tpu_torch.guidance.clip import (
+        SD21_TEXT_ENCODER, write_random_text_encoder)
+    from threestudio_3dgs_tpu_torch.guidance.tokenizer import write_tokenizer
 
     t0 = time.perf_counter()
     sizes = write_random_checkpoint(SD_DIR, seed=0, device="cuda")
+    te_dir = os.path.join(SD_DIR, "text_encoder")
+    sizes[os.path.join(te_dir, "pytorch_model.bin")] = write_random_text_encoder(
+        te_dir, SD21_TEXT_ENCODER, seed=0, device="cuda")
+    write_tokenizer(os.path.join(SD_DIR, "tokenizer"), TOKENIZER_CORPUS, 400, pad_token="!")
     total = sum(sizes.values())
-    log(f"wrote SD 2.1-base random checkpoint (seed 0, f32) in {time.perf_counter() - t0:.1f} s: "
+    log(f"wrote SD 2.1-base random checkpoint (seed 0, f32; UNet, VAE, text encoder of 23 "
+        f"layers x 1024, synthetic tokenizer) in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{os.path.relpath(p, ROOT)} {n / 2**20:.1f} MiB" for p, n in sizes.items())
         + f"; {total / 2**30:.2f} GiB")
 
 
+def write_mv_checkpoint(torch):
+    """The published MVDream UNet (SD 2.1-base widths with the 4-view fold
+    and the camera MLP) and the SD VAE, seeded random f32 weights."""
+    from threestudio_3dgs_tpu_torch.diffusion import MVDREAM_UNET
+    from threestudio_3dgs_tpu_torch.diffusion.convert import write_random_checkpoint
+
+    t0 = time.perf_counter()
+    sizes = write_random_checkpoint(MV_DIR, MVDREAM_UNET, seed=0, device="cuda")
+    log(f"wrote MVDream random checkpoint (seed 0, f32) in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{os.path.relpath(p, ROOT)} {n / 2**20:.1f} MiB" for p, n in sizes.items())
+        + f"; {sum(sizes.values()) / 2**30:.2f} GiB")
+
+
+def check_clip_small(torch):
+    """The port's CLIP text encoder on a tiny seeded random directory
+    (gelu, 2 layers of 64) on the card against the same encoding on the
+    CPU: the hidden states of three prompts to 1e-4 of max(1, max|CPU|)
+    (cuBLAS and the CPU sum in other orders)."""
+    from threestudio_3dgs_tpu_torch.guidance import clip
+    from threestudio_3dgs_tpu_torch.guidance.tokenizer import write_tokenizer
+
+    root = os.path.join(RUN_DIR, "clip-tiny")
+    write_tokenizer(os.path.join(root, "tokenizer"), TOKENIZER_CORPUS, 200, pad_token="!")
+    clip.write_random_text_encoder(
+        os.path.join(root, "text_encoder"),
+        clip.CLIPTextConfig(vocab_size=1000, hidden_size=64, intermediate_size=128,
+                            num_hidden_layers=2, num_attention_heads=4, hidden_act="gelu"),
+        seed=0, device="cpu")
+    err, scale = 0.0, 1.0
+    on_card, on_cpu = clip.PromptEncoder(root, "cuda"), clip.PromptEncoder(root, "cpu")
+    for prompt in ("a hamburger", "A DSLR photo of a cat's hat, front view",
+                   " ".join(["delicious hamburger"] * 40)):
+        card, cpu = on_card(prompt), on_cpu(prompt)
+        if card.shape != (77, 64) or not np.isfinite(card).all():
+            fail(f"CLIP on the card: shape {card.shape}, finite {np.isfinite(card).all()}")
+        err = max(err, float(np.abs(card - cpu).max()))
+        scale = max(scale, float(np.abs(cpu).max()))
+    report("clip-tiny", "clip_hidden", err, 1e-4 * scale, "card vs CPU, max|diff|")
+
+
+def train_lit(torch, native, name, config, extra, k5_shapes=()):
+    """LIT_STEPS steps of one of this slice's YAMLs through launch.main,
+    every counter zeroed just before: every logged loss finite, grad_norm
+    > 0, K1-K4 launched, K5 launched 5 times a step at each of
+    ``k5_shapes`` and nowhere else, and the background MLP moved.  Returns
+    the trainer, the launches and K5's launches by shape."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.ops.flash_attention import HEAD_DIM, shape_tag
+    from threestudio_3dgs_tpu_torch.systems.base import flatten_extra
+    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+
+    argv = ["--config", config, "--train", f"trainer.max_steps={LIT_STEPS}",
+            "trainer.val_check_interval=0", "data.n_test_views=8",
+            f"exp_root_dir={os.path.join(RUN_DIR, name)}"] + extra
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    trainer = launch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    shape_launches = {tag: c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
+                      if fn == "flash_attention_forward"}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = trainer.metrics_log
+    if len(rows) != LIT_STEPS:
+        fail(f"{name}: expected {LIT_STEPS} logged steps, got {len(rows)}")
+    for row in rows:
+        bad = [k for k, v in row.items() if k.startswith("train/") and not np.isfinite(v)]
+        if bad or not row["train/grad_norm"] > 0:
+            fail(f"{name} step {row['step']}: non-finite {bad}, grad_norm {row['train/grad_norm']}")
+    missing = [k for k in RASTER_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"{name}: kernels never launched: {missing}")
+    want = {shape_tag(bh, n, HEAD_DIM): K5_PER_SHAPE_PER_UNET_CALL * LIT_STEPS
+            for bh, n in k5_shapes}
+    if shape_launches != want or launches["flash_attention_forward"] != sum(want.values()):
+        fail(f"{name}: K5 launched {launches['flash_attention_forward']} times, by shape "
+             f"{shape_launches}; want {want}")
+    state = trainer.state
+    init = trainer.system.init_state(trainer.cfg.seed).extra_params
+    moved = {k: float((v - flatten_extra(init)[k]).abs().max())
+             for k, v in flatten_extra(state.extra_params).items()}
+    if not moved or min(moved.values()) <= 0 or state.extra_opt.count != LIT_STEPS:
+        fail(f"{name}: the background MLP did not train: {moved}")
+    step_ms = [row["step_s"] * 1e3 for row in rows[1:]]
+    cfg = trainer.cfg
+    log(f"{name}: {LIT_STEPS} steps of {os.path.basename(config)} "
+        f"({cfg.system['renderer_type']}, {cfg.system['guidance_type']}) at "
+        f"{trainer.data.train_sampler.height}x{trainer.data.train_sampler.width}, batch "
+        f"{trainer.data.train_sampler.batch_size}: {wall:.2f} s wall incl. loading and 8 test "
+        f"renders; "
+        f"median step (steps 2-{LIT_STEPS}) {statistics.median(step_ms):.1f} ms (min "
+        f"{min(step_ms):.1f}, max {max(step_ms):.1f}); peak device memory {peak:.2f} GiB; "
+        f"last loss_total {rows[-1]['train/loss_total']:.6g}, grad_norm "
+        f"{rows[-1]['train/grad_norm']:.6g}; background moved by up to "
+        f"{max(moved.values()):.3g}; launches {launches}, K5 by shape {shape_launches}")
+    return trainer, launches, {shape: shape_launches[shape_tag(*shape, HEAD_DIM)]
+                               for shape in k5_shapes}
+
+
 def check_flash(torch):
     """K5 against its plain version at each K5_CHECKS case.  Returns the
-    absolute error by (bh, n) of the bf16 checks on standard normal inputs."""
+    absolute error by (bh, n, dtype name) of the checks on standard normal
+    inputs."""
     from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
     from threestudio_3dgs_tpu_torch.utils.profiling import k5_inputs, k5_tolerance
 
@@ -651,8 +813,8 @@ def check_flash(torch):
                 fail(f"k5 {bh}x{n}x64 {dtype}: non-finite output")
             label = f"k5 {bh}x{n}x64 {dtype}" + (" rising max" if rising else "")
             report(label, "flash_attention", err, k5_tolerance(want), rule)
-            if dtype == "bfloat16" and not rising:
-                errs[(bh, n)] = err
+            if not rising:
+                errs[(bh, n, dtype)] = err
             del q, k, v, got, want
     torch.cuda.empty_cache()
     return errs
@@ -675,25 +837,29 @@ def check_sd_small(torch):
            "card vs CPU, relative L2")
 
 
-def time_flash(torch):
-    """K5 at the two bf16 UNet shapes: its time, its plain version's,
-    scaled_dot_product_attention's, and its bound (each input read once and
-    the output written once at 3.35 TB/s; 4 bh n^2 d FLOPs at the bf16
-    tensor-core peak), with its achieved TFLOP/s and share of the bound.
-    Returns the rows by (bh, n)."""
+def time_flash(torch, shapes, dtype):
+    """K5 at the main path's shapes in ``dtype``: its time, its plain
+    version's, scaled_dot_product_attention's, and its bound: each input
+    read once and the output written once at 3.35 TB/s, or 4 bh n^2 d
+    FLOPs at the type's peak (bf16 tensor cores 989 TFLOP/s, f32 CUDA cores
+    67), whichever is longer; the SFU floor (bh n^2 exponentials at 16 a
+    clock per SM, 132 SMs, 1.755 GHz) beside it.  Returns the rows by (bh,
+    n)."""
     import torch.nn.functional as F
 
     from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
     from threestudio_3dgs_tpu_torch.utils.kernel_timing import graph_ms, wrapper_ms
     from threestudio_3dgs_tpu_torch.utils.profiling import k5_inputs
 
+    peak = PEAK_BF16_TC_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     rows = {}
     with torch.no_grad():
-        for bh, n in K5_SHAPES:
-            q, k, v = k5_inputs(bh, n, torch.bfloat16, seed=20)
+        for bh, n in shapes:
+            q, k, v = k5_inputs(bh, n, dtype, seed=20)
             d = q.shape[-1]
             b_ms = 4 * q.numel() * q.element_size() / PEAK_BYTES_PER_S * 1e3
-            o_ms = 4 * bh * n * n * d / PEAK_BF16_TC_FLOPS * 1e3
+            o_ms = 4 * bh * n * n * d / peak * 1e3
+            sfu_ms = bh * n * n / (16 * 132 * 1.755e9) * 1e3
             call = lambda: fa.flash_bhnd_cuda(q, k, v, 0.125)  # noqa: E731
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q[None], k[None], v[None], scale=0.125)
@@ -706,10 +872,11 @@ def time_flash(torch):
                 bound=(max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"),
             )
             r = rows[(bh, n)]
-            log_time(f"flash_attention ({bh}, {n}, {d}) bfloat16", r,
+            log_time(f"flash_attention ({bh}, {n}, {d}) {str(dtype).split('.')[-1]}", r,
                      "scaled_dot_product_attention",
                      f"[by device time {4 * bh * n * n * d / r['device_ms'] / 1e9:.1f} TFLOP/s, "
-                     f"{r['bound'][0] / r['device_ms']:.1%} of the bound]")
+                     f"{r['bound'][0] / r['device_ms']:.1%} of the bound; SFU floor "
+                     f"{sfu_ms:.4f} ms]")
             del q, k, v
     torch.cuda.empty_cache()
     return rows
@@ -779,6 +946,7 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
+    from threestudio_3dgs_tpu_torch.guidance.base import text_embedding
     from threestudio_3dgs_tpu_torch.ops import camera as cam_mod
     from threestudio_3dgs_tpu_torch.ops import native
     from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
@@ -835,17 +1003,62 @@ def main():
     write_sd_checkpoint(torch)
     k5_errs = check_flash(torch)
     check_sd_small(torch)
+    check_clip_small(torch)
     sd_launches, k5_launches = train_sd(torch, native)
     if sd_launches["flash_attention_forward"] != sum(k5_launches.values()):
         fail("K5's launches by shape do not add up to its launches")
-    k5_times = time_flash(torch)
+    k5_times = time_flash(torch, K5_SHAPES, torch.bfloat16)
+
+    # this slice's paths: (a) the shading YAML with its own SD guidance and
+    # CLIP prompts, (b) the MVDream YAML with its multi-view guidance, (c)
+    # the background YAML with fake guidance
+    lit = ["system.guidance.pretrained_model_name_or_path=" + SD_DIR,
+           "system.prompt_processor.pretrained_model_name_or_path=" + SD_DIR,
+           f"system.material.ambient_only_steps={AMBIENT_ONLY_STEPS}"]
+    trainer, _, _ = train_lit(torch, native, "train_shading", SHADING_CONFIG, lit, K5_SHAPES)
+    prompt_utils = trainer.system.prompt_utils
+    if np.array_equal(prompt_utils.text_embedding, text_embedding(prompt_utils.prompt)):
+        fail("train_shading: the prompt was not encoded by the CLIP text encoder")
+    del trainer
+    torch.cuda.empty_cache()
+
+    write_mv_checkpoint(torch)
+    # the YAML replaces 95% of the views' backgrounds by black or white, so
+    # in 40 views the MLP would see no gradient 13% of the time; at 50% the
+    # check that it trained has teeth
+    mv = ["system.guidance.pretrained_model_name_or_path=" + MV_DIR,
+          "system.background.random_aug_prob=0.5"] + lit[1:]
+    trainer, mv_launches, mv_k5 = train_lit(torch, native, "train_mvdream", MVDREAM_CONFIG, mv,
+                                            K5_MV_SHAPES)
+    if trainer.system.guidance.unet is None or trainer.system.guidance.vae_encoder is None:
+        fail("train_mvdream: the guidance did not load the MVDream directory")
+    mv_inp = view_inputs(trained_scene(torch, trainer), seed=4)
+    del trainer
+    torch.cuda.empty_cache()
+    mv_errs = check_kernels(torch, mv_inp, "mv256")
+    log("MVDream-view timing (256^2, the trained MVDream field; these go in the kernels line):")
+    mv_timing = time_kernels(torch, mv_inp, "mv256")
+    del mv_inp
+    k5_mv_times = time_flash(torch, K5_MV_SHAPES, torch.float32)
+
+    trainer, _, _ = train_lit(torch, native, "train_background", BACKGROUND_CONFIG,
+                              ["system.guidance_type=fake-sds-guidance"])
+    del trainer
+    torch.cuda.empty_cache()
 
     # (row name, kernel, launches, max abs error, timings): K1-K4 at the
-    # trained view, K5 once per main-path shape
+    # trained view and at the MVDream view, K5 once per main-path shape
+    raster = [name for name in KERNELS if name not in ("flash_attention_forward", "expand_slots")]
     rows = [(name, name, train_launches[name], max(e[name] for e in errs.values()), timing[name])
-            for name in KERNELS if name not in ("flash_attention_forward", "expand_slots")]
+            for name in raster]
+    rows += [(f"{name}@mvdream256", name, mv_launches[name], mv_errs[name], mv_timing[name])
+             for name in raster]
     rows += [(f"flash_attention_forward@{bh}x{n}x64", "flash_attention_forward",
-              k5_launches[(bh, n)], k5_errs[(bh, n)], k5_times[(bh, n)]) for bh, n in K5_SHAPES]
+              k5_launches[(bh, n)], k5_errs[(bh, n, "bfloat16")], k5_times[(bh, n)])
+             for bh, n in K5_SHAPES]
+    rows += [(f"flash_attention_forward@{bh}x{n}x64:f32", "flash_attention_forward",
+              mv_k5[(bh, n)], k5_errs[(bh, n, "float32")], k5_mv_times[(bh, n)])
+             for bh, n in K5_MV_SHAPES]
     # K6 is on no training path: its launches are its checks', its time the
     # bench scene's
     rows.append(("expand_slots", "expand_slots", k6_launches, k6_err, k6_time))

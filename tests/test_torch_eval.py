@@ -224,6 +224,8 @@ def test_checkpoint_round_trip(systems, tmp_path):
     save_checkpoint(path, pstate, 7)
     state, step = load_checkpoint(path, device="cpu")
     assert step == 7
+    assert state.extra_params == {} and state.extra_opt is None
+    state = state.gauss
     want, got = to_numpy(pstate.gauss), to_numpy(state)
     for group in ("params",):
         for k, v in want[group].items():

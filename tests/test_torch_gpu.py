@@ -536,3 +536,118 @@ def test_sd_guidance_on_card_matches_cpu(cuda, tmp_path):
     assert (k5_card, k5_cpu) == (TINY_SD_K5_LAUNCHES, 0)
     assert np.isfinite(loss_c) and loss_c == pytest.approx(loss_p, rel=1e-4)
     assert float((grad_c - grad_p).norm() / grad_p.norm()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The lit and multi-view slice: K5 in f32 at MVDream's shapes, CLIP, the
+# renderer variants' training steps, the MVDream guidance
+# ---------------------------------------------------------------------------
+
+CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "threestudio_3dgs_tpu_torch", "configs")
+
+
+@pytest.mark.parametrize("bh,n", [(10, 4096), (20, 1024)], ids=["level0", "level1"])
+@torch.no_grad()
+def test_flash_attention_f32_mvdream_shapes(cuda, bh, n):
+    """K5's CUDA-core f32 kernel at the MVDream UNet's self-attention
+    shapes (256^2 renders, 4 views folded, CFG batch 8), to 2e-5, one
+    launch counted under its shape."""
+    q, k, v = k5_inputs(bh, n, torch.float32, seed=5)
+    native.reset_launches()
+    got = fa.flash_bhnd(q, k, v, 0.125)
+    want = fa.flash_bhnd_torch(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert native.SHAPE_LAUNCHES == {("flash_attention_forward", fa.shape_tag(bh, n, 64)): 1}
+    assert float((got - want).abs().max()) <= k5_tolerance(want) == 2e-5
+
+
+def test_clip_on_card_matches_cpu(cuda, tmp_path):
+    """The CLIP text encoder of a tiny random directory on the card against
+    the CPU, three prompts, to 1e-4 of max(1, max|CPU|)."""
+    from threestudio_3dgs_tpu_torch.guidance import clip
+    from threestudio_3dgs_tpu_torch.guidance.tokenizer import write_tokenizer
+
+    write_tokenizer(str(tmp_path / "tokenizer"), "a photo of a hamburger, front view", 50,
+                    pad_token="!")
+    clip.write_random_text_encoder(str(tmp_path / "text_encoder"), clip.CLIPTextConfig(
+        vocab_size=700, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=4, hidden_act="gelu"), seed=0, device="cpu")
+    on_card, on_cpu = clip.PromptEncoder(str(tmp_path), cuda), clip.PromptEncoder(str(tmp_path))
+    for prompt in ("a hamburger", "A photo of a hamburger, front view!", "x " * 100):
+        card, cpu = on_card(prompt), on_cpu(prompt)
+        assert card.shape == (77, 64) and np.isfinite(card).all()
+        assert np.abs(card - cpu).max() <= 1e-4 * max(1.0, np.abs(cpu).max())
+
+
+@pytest.mark.parametrize("yaml", ["shading", "background", "mvdream", "imagedream"])
+def test_lit_training_steps_on_card(cuda, tmp_path, yaml):
+    """Two steps of each of this slice's YAMLs on the card at 128^2 with
+    fake or analytic guidance (the lit branch from step 1): finite losses,
+    every raster kernel launched, the background MLP trained."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.systems.base import flatten_extra
+
+    guidance = ([] if yaml in ("mvdream", "imagedream")
+                else ["system.guidance_type=fake-sds-guidance"])
+    native.reset_launches()
+    trainer = launch.main([
+        "--config", os.path.join(CONFIG_DIR, f"gaussian_splatting_{yaml}.yaml"), "--train",
+        f"exp_root_dir={tmp_path}", "trainer.max_steps=2", "trainer.val_check_interval=0",
+        "data.width=128", "data.height=128", "system.geometry.init_num_pts=512",
+        "system.geometry.capacity=2048", "system.material.ambient_only_steps=1",
+        "system.background.random_aug=false",
+        "data.eval_height=128", "data.eval_width=128", "data.n_test_views=2",
+    ] + guidance)
+    assert all(np.isfinite(row["train/loss_total"]) for row in trainer.metrics_log)
+    assert all(native.LAUNCHES[k] > 0 for k in RASTER_KERNELS)
+    init = flatten_extra(trainer.system.init_state(trainer.cfg.seed).extra_params)
+    for k, v in flatten_extra(trainer.state.extra_params).items():
+        assert v.is_cuda and float((v - init[k]).abs().max()) > 0, k
+
+
+def test_mvdream_guidance_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """A tiny random MVDream directory (head dim 64 at level 0, so the
+    4-view fold of 16^2 latents is a 1024-token self-attention that takes
+    K5's f32 kernel on the card): the recon-SDS loss and its gradient
+    w.r.t. rgb on the card against the CPU, f32, the same draws (1e-4
+    relative)."""
+    import threestudio_3dgs_tpu_torch.diffusion as pdiff
+    from threestudio_3dgs_tpu_torch.diffusion import convert, unet, vae
+    from threestudio_3dgs_tpu_torch.guidance.mvdream import MultiviewDiffusionGuidance
+
+    ucfg = unet.UNet2DConditionConfig(
+        block_out_channels=(64, 128), attention_head_dim=(1, 2), cross_attention_dim=48,
+        down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+        up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), norm_groups=8,
+        num_views=4, camera_embed_dim=16)
+    vcfg = vae.AutoencoderKLConfig(block_out_channels=(16, 32), norm_groups=8)
+    monkeypatch.setattr(pdiff, "MVDREAM_UNET", ucfg)
+    monkeypatch.setattr(pdiff, "SD_VAE", vcfg)
+    convert.write_random_checkpoint(str(tmp_path), ucfg, vcfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    rgb = rng.uniform(size=(4, 64, 64, 3)).astype(np.float32)
+    emb = rng.normal(size=(77, 48)).astype(np.float32)
+    c2w = np.tile(np.eye(4, dtype=np.float32), (4, 1, 1))
+    c2w[:, :3, 3] = rng.normal(size=(4, 3))
+    draws = {"t": torch.tensor([300]),
+             "noise": torch.tensor(rng.normal(size=(4, 4, 16, 16)).astype(np.float32)),
+             "latent_noise": torch.tensor(rng.normal(size=(4, 4, 16, 16)).astype(np.float32))}
+
+    class Prompt:
+        def get_text_embeddings(self, elevation=None, azimuth=None):
+            return emb
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        guidance = MultiviewDiffusionGuidance(
+            {"pretrained_model_name_or_path": str(tmp_path), "image_size": 32}, device=device)
+        x = torch.tensor(rgb, device=device, requires_grad=True)
+        native.reset_launches()
+        out = guidance(x, Prompt(), {"c2w": c2w}, draws=draws)
+        out["loss_sds"].backward()
+        results[device] = (float(out["loss_sds"].detach()), x.grad.cpu(),
+                           dict(native.SHAPE_LAUNCHES))
+    (loss_c, grad_c, k5_c), (loss_p, grad_p, k5_p) = results["cuda"], results["cpu"]
+    assert k5_c == {("flash_attention_forward", fa.shape_tag(2, 1024, 64)): 5} and k5_p == {}
+    assert np.isfinite(loss_c) and loss_c == pytest.approx(loss_p, rel=1e-4)
+    assert float((grad_c - grad_p).norm() / grad_p.norm()) <= 1e-4

@@ -10,11 +10,16 @@ builds nothing.
   ops/        math core, rasterizer (projection, binning, blend) and kernels
   models/     fixed-capacity Gaussian field (with densify / prune), Adam,
               state conversion, PLY I/O, mesh extraction and export
-  renderers/  diff-gaussian-rasterizer
-  guidance/   SDS math, the fake SDS guidance and Stable Diffusion
-  diffusion/  the UNet and VAE of the Stable Diffusion guidance
+  renderers/  diff-gaussian-rasterizer and its -advanced, -background,
+              -normal and -shading variants
+  materials/  no-material and the point-light material
+  backgrounds/ solid colour and the neural environment map
+  guidance/   SDS math, the fake SDS guidance, Stable Diffusion, MVDream /
+              ImageDream, the CLIP tokenizer and text encoder
+  diffusion/  the UNet (multiview too) and VAE of the diffusion guidance
   data/       random-camera sampler and the fixed eval circles
-  systems/    the text-to-3D SDS training step and its eval renders
+  systems/    the text-to-3D and multi-view SDS training steps and their
+              eval renders
   utils/      registry, config system, losses, checkpoints, image saving
 """
 

@@ -1,1 +1,1 @@
-from . import solid  # noqa: F401
+from . import neural_env, solid  # noqa: F401

@@ -32,10 +32,12 @@ class SolidColorBackground:
             cfg = parse_structured(SolidColorBackgroundConfig, cfg)
         self.cfg = cfg
 
-    def init_params(self):
+    def init_params(self, generator=None):
         return {}
 
-    def __call__(self, params, dirs, generator=None, training=False):
+    def __call__(self, params, dirs, generator=None, training=False, draws=None):
+        """``draws`` is accepted for the renderer's interface; this
+        background's augmentation draws from ``generator`` only."""
         color = torch.tensor(self.cfg.color, dtype=torch.float32, device=dirs.device)
         out = color.expand(dirs.shape[:-1] + (3,))
         if training and self.cfg.random_aug and generator is not None:

@@ -5,7 +5,8 @@ package's Flax parameter trees.
   * ``unet_config_from_diffusers_json`` / ``vae_config_from_diffusers_json``
     read a diffusers ``config.json``; ``*_config_to_diffusers`` write one;
   * ``load_torch_state_dict`` reads ``diffusion_pytorch_model.bin`` (or
-    ``.safetensors`` where that package is installed);
+    ``.safetensors`` where that package is installed); ``load_frozen``
+    builds a module from a state dict, frozen on a device in f32;
   * ``cast_half`` casts a module's weights to bf16 and keeps every
     parameter whose name contains "norm" in f32 (``cast_params_half``'s
     name rule); ``fast_model_config`` sets bf16 compute;
@@ -140,6 +141,16 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if "state_dict" in sd and isinstance(sd["state_dict"], dict):
         sd = sd["state_dict"]  # lightning-style nesting
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def load_frozen(module_cls, model_cfg, state_dict: Dict[str, torch.Tensor],
+                device) -> torch.nn.Module:
+    """Build a module without initialising it, load the state dict
+    strictly and move it to ``device`` in f32, frozen and in eval mode."""
+    with torch.device("meta"):
+        module = module_cls(model_cfg)
+    module.load_state_dict(state_dict, strict=True, assign=True)
+    return module.to(device=device, dtype=torch.float32).requires_grad_(False).eval()
 
 
 def cast_half(module: torch.nn.Module, dtype=torch.bfloat16) -> torch.nn.Module:

@@ -1,12 +1,16 @@
 """Guidance interface and prompt processing (port of the JAX package's
-``guidance/base.py`` without CLIP).
+``guidance/base.py``).
 
 The guidance contract: guidance(rgb (B, H, W, 3), prompt_utils, batch) ->
 {"loss_sds": ..., ...}; every loss_* is weighted by the matching lambda_*
-in the system config.  The prompt processor carries the prompt text and
-deterministic text-derived embeddings, seeded by the CRC32 of the text (the
-JAX package seeds from Python's per-process ``hash``); CLIP encoding waits
-until a text-encoder checkpoint is in the repository (ROADMAP.md, queue 1, item 6).
+in the system config.  The prompt processor carries the prompt text and its
+embeddings: with ``pretrained_model_name_or_path`` a local directory that
+holds ``text_encoder/`` and ``tokenizer/``, the CLIP hidden states
+(``guidance/clip.py``, run once per prompt variant on the system's device);
+without them, deterministic vectors seeded by the CRC32 of the text (the
+JAX package seeds its fallback from Python's per-process ``hash``).  Where
+the JAX package turns any failure of its CLIP load into the fallback, the
+port raises: a silently different prompt is a different result.
 
 View-dependent prompting (threestudio's rule): four direction-suffixed
 variants of the prompt are embedded up front, and
@@ -21,6 +25,7 @@ import numpy as np
 
 from ..utils.config import parse_structured
 from ..utils.registry import register
+from .clip import PromptEncoder, has_clip
 
 
 class BaseGuidance:
@@ -53,16 +58,22 @@ def text_embedding(text: str) -> np.ndarray:
 
 
 class PromptUtils:
-    """Carrier for text conditioning: the prompt's embedding and, with
-    view-dependent prompting, those of its four view variants (4, 77, 1024)."""
+    """Carrier for text conditioning: the prompt's embedding (77, D) and,
+    with view-dependent prompting, those of its four view variants (4, 77,
+    D); CLIP's from ``model_dir`` when it holds a text encoder and a
+    tokenizer, else the CRC32-seeded vectors (D = 1024)."""
 
-    def __init__(self, prompt: str, negative_prompt: str = "", cfg=None):
+    def __init__(self, prompt: str, negative_prompt: str = "", model_dir: str = "",
+                 cfg=None, device="cpu"):
         self.prompt = prompt
         self.negative_prompt = negative_prompt
         self.cfg = cfg or PromptProcessorConfig(prompt=prompt)
-        self.text_embedding = text_embedding(prompt)
+        # the encoder is loaded once for the prompt and its view variants,
+        # and its device memory freed after
+        encode = PromptEncoder(model_dir, device) if has_clip(model_dir) else text_embedding
+        self.text_embedding = encode(prompt)
         self.view_embeddings = (
-            np.stack([text_embedding(prompt + s) for s in VIEW_SUFFIXES])
+            np.stack([encode(prompt + s) for s in VIEW_SUFFIXES])
             if self.cfg.view_dependent_prompting else None
         )
 
@@ -88,12 +99,15 @@ class PromptUtils:
 class PromptProcessor:
     Config = PromptProcessorConfig
 
-    def __init__(self, cfg=None, **kwargs):
+    def __init__(self, cfg=None, device="cpu", **kwargs):
         if cfg is None:
             cfg = PromptProcessorConfig(**kwargs)
         elif isinstance(cfg, dict):
             cfg = parse_structured(PromptProcessorConfig, cfg)
         self.cfg = cfg
+        self.device = device
 
     def __call__(self) -> PromptUtils:
-        return PromptUtils(self.cfg.prompt, self.cfg.negative_prompt, cfg=self.cfg)
+        return PromptUtils(self.cfg.prompt, self.cfg.negative_prompt,
+                           model_dir=str(self.cfg.pretrained_model_name_or_path or ""),
+                           cfg=self.cfg, device=self.device)

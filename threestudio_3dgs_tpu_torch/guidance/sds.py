@@ -1,6 +1,7 @@
 """Score-distillation core math (port of the JAX package's
-``guidance/sds.py``: the alphas schedule, the scheduled timestep window and
-the reparameterised SDS loss).
+``guidance/sds.py``: the alphas schedule, the scheduled timestep window,
+the reparameterised SDS loss and MVDream's reconstruction loss, each with
+one timestep per scene of ``n_view`` views).
 
     grad = w(t) * (eps_pred - eps)               (no gradient)
     target = latents - grad                      (no gradient)
@@ -47,6 +48,21 @@ def sds_sched_scalars(cfg: SDSConfig, step: int) -> dict:
     return sched
 
 
+def _draw_t_noise(latents, generator, sched, n_view, t, noise):
+    """One timestep per scene of ``n_view`` consecutive views, repeated to
+    its views, and the noise: drawn from ``generator`` unless given (``t``
+    per scene, (B // n_view,))."""
+    b = latents.shape[0]
+    device = latents.device
+    if t is None:
+        t = torch.randint(sched["min_step"], sched["max_step"] + 1, (b // n_view,),
+                          generator=generator, device=generator.device)
+    t = torch.repeat_interleave(t.to(device), n_view)
+    if noise is None:
+        noise = torch.randn(latents.shape, generator=generator, device=generator.device)
+    return t, noise.to(device)
+
+
 def sds_loss(
     latents: torch.Tensor,  # (B, ...) differentiable render
     denoise_fn: Callable,  # (noisy, t) -> (eps_uncond, eps_cond)
@@ -56,19 +72,14 @@ def sds_loss(
     alphas_cumprod: torch.Tensor,
     t: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    n_view: int = 1,
 ) -> Tuple[torch.Tensor, dict]:
-    """``t`` and ``noise`` are drawn from ``generator`` unless given (tests
-    feed the JAX package's draws)."""
+    """``n_view`` > 1: one timestep shared by each scene's views.  ``t``
+    (per scene) and ``noise`` are drawn from ``generator`` unless given
+    (tests feed the JAX package's draws)."""
     b = latents.shape[0]
-    device = latents.device
-    if t is None:
-        t = torch.randint(sched["min_step"], sched["max_step"] + 1, (b,),
-                          generator=generator, device=generator.device)
-    t = t.to(device)
-    alpha_bar = alphas_cumprod.to(device)[t].reshape((b,) + (1,) * (latents.dim() - 1))
-    if noise is None:
-        noise = torch.randn(latents.shape, generator=generator, device=generator.device)
-    noise = noise.to(device)
+    t, noise = _draw_t_noise(latents, generator, sched, n_view, t, noise)
+    alpha_bar = alphas_cumprod.to(latents.device)[t].reshape((b,) + (1,) * (latents.dim() - 1))
     noisy = torch.sqrt(alpha_bar) * latents + torch.sqrt(1.0 - alpha_bar) * noise
 
     eps_uncond, eps_cond = denoise_fn(noisy.detach(), t)
@@ -88,4 +99,45 @@ def sds_loss(
     target = (latents - grad).detach()
     loss = 0.5 * torch.sum((latents - target) ** 2) / b
     aux = {"grad_norm": torch.linalg.norm(grad)}
+    return loss, aux
+
+
+def sds_recon_loss(
+    latents: torch.Tensor,  # (B, ...) differentiable latents, B = scenes * n_view
+    denoise_fn: Callable,  # (noisy, t) -> (eps_uncond, eps_cond)
+    generator: torch.Generator,
+    sched: dict,
+    cfg: SDSConfig,
+    alphas_cumprod: torch.Tensor,
+    n_view: int = 4,
+    recon_std_rescale: float = 0.5,
+    t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """MVDream's reconstruction-mode SDS: denoise to the x0 estimate under
+    CFG, pull its per-scene std toward the unguided estimate's by
+    ``recon_std_rescale`` (the CFG over-saturation fix), and take 0.5 x the
+    per-view sum of squares against it, averaged over views."""
+    b = latents.shape[0]
+    scenes = b // n_view
+    t, noise = _draw_t_noise(latents, generator, sched, n_view, t, noise)
+    alpha_bar = alphas_cumprod.to(latents.device)[t].reshape((b,) + (1,) * (latents.dim() - 1))
+    noisy = torch.sqrt(alpha_bar) * latents + torch.sqrt(1.0 - alpha_bar) * noise
+
+    eps_uncond, eps_cond = denoise_fn(noisy.detach(), t)
+    eps_pred = eps_uncond + cfg.guidance_scale * (eps_cond - eps_uncond)
+    sqrt_ab = torch.sqrt(alpha_bar)
+    sqrt_1ab = torch.sqrt(1.0 - alpha_bar)
+    recon = (noisy - sqrt_1ab * eps_pred) / sqrt_ab
+    if recon_std_rescale > 0:
+        recon_nocfg = (noisy - sqrt_1ab * eps_cond) / sqrt_ab
+        std = torch.std(recon.reshape(scenes, -1), dim=1, correction=0) + 1e-8
+        std_nocfg = torch.std(recon_nocfg.reshape(scenes, -1), dim=1, correction=0)
+        factor = (std_nocfg / std).reshape((scenes, 1) + (1,) * (latents.dim() - 1))
+        adjusted = recon.reshape((scenes, n_view) + latents.shape[1:]) * factor
+        adjusted = adjusted.reshape(latents.shape)
+        recon = recon_std_rescale * adjusted + (1 - recon_std_rescale) * recon
+    target = recon.detach()
+    loss = 0.5 * torch.mean(torch.sum((latents - target) ** 2, dim=tuple(range(1, latents.dim()))))
+    aux = {"grad_norm": torch.linalg.norm((latents - target).detach())}
     return loss, aux

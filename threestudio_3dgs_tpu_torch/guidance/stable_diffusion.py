@@ -74,15 +74,11 @@ class StableDiffusionGuidance(BaseGuidance):
             self.denoiser = self._try_load_local(cfg.pretrained_model_name_or_path)
 
     def _load(self, module_cls, model_cfg, state_dict):
-        """Build a module without initialising it, load the state dict
-        strictly, move it to the device in f32 and, with
-        ``half_precision_weights``, cast it to bf16 with f32 norms."""
-        from ..diffusion.convert import cast_half
+        """The module of a state dict, frozen on the device in f32 or, with
+        ``half_precision_weights``, cast to bf16 with f32 norms."""
+        from ..diffusion.convert import cast_half, load_frozen
 
-        with torch.device("meta"):
-            module = module_cls(model_cfg)
-        module.load_state_dict(state_dict, strict=True, assign=True)
-        module = module.to(device=self.device, dtype=torch.float32).requires_grad_(False).eval()
+        module = load_frozen(module_cls, model_cfg, state_dict, self.device)
         return cast_half(module) if self.cfg.half_precision_weights else module
 
     def _try_load_local(self, path: str):

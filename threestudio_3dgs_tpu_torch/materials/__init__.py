@@ -1,1 +1,1 @@
-from . import no_material  # noqa: F401
+from . import gaussian_material, no_material  # noqa: F401

@@ -1,13 +1,17 @@
-"""Carry a Gaussian-field state across packages.
+"""Carry a training state across packages.
 
 ``gaussian_state_from_numpy`` turns a JAX package ``GaussianState`` whose
 leaves were brought to the host (``jax.device_get``: numpy leaves) into the
-port's state; ``to_numpy`` is its inverse for comparisons.  Only attribute
-access is used, so nothing of the JAX package is imported here."""
+port's state; ``to_numpy`` is its inverse for comparisons.
+``extra_from_numpy`` does the same for a JAX ``SystemState``'s
+``extra_params`` and ``extra_opt`` (the neural background's MLP and its
+Adam moments), which the port cannot draw itself: the JAX package draws
+them from a JAX PRNG.  Only attribute access is used, so nothing of the JAX
+package is imported here."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,6 +20,37 @@ from .gaussian_field import (
     PARAM_FIELDS, STAT_FIELDS, GaussianParams, GaussianState,
 )
 from .optim import AdamState
+
+
+def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def extra_from_numpy(
+    extra_params: Dict[str, Any], extra_opt: Any, device="cuda",
+) -> Tuple[Dict[str, Dict[str, torch.Tensor]], Optional[AdamState]]:
+    """A host-side JAX ``extra_params`` tree ({group: {name: array}}) and
+    its ``extra_opt`` (an Adam state of the same tree) -> the port's
+    ``SystemState.extra_params`` and ``extra_opt`` (keys "group/name");
+    (``{}``, None) for an empty tree."""
+    if not extra_params:
+        return {}, None
+
+    def dev(a):
+        return torch.as_tensor(np.array(a), dtype=torch.float32, device=device)
+
+    params = {group: {k: dev(v) for k, v in leaves.items()}
+              for group, leaves in extra_params.items()}
+    adam = AdamState(mu={k: dev(v) for k, v in _flat(extra_opt.mu).items()},
+                     nu={k: dev(v) for k, v in _flat(extra_opt.nu).items()},
+                     count=int(np.asarray(extra_opt.count)))
+    return params, adam
 
 
 def _fields(tree: Any) -> Dict[str, np.ndarray]:

@@ -9,7 +9,8 @@ source at once (one ``nvcc`` process per source, started together) into
 ``cudaGetLastError()``; :func:`launch` raises if it is not zero and counts
 the launch in :data:`LAUNCHES`, the per-kernel counter that shows a run
 went through the kernel (and in :data:`SHAPE_LAUNCHES` per shape, where the
-wrapper names the shape).
+wrapper names the shape).  A failed build or launch raises
+:class:`KernelError`, which the trainer never retries.
 """
 
 from __future__ import annotations
@@ -71,6 +72,13 @@ _CUDA_ERRORS = {
     801: "cudaErrorNotSupported",
 }
 
+
+
+class KernelError(RuntimeError):
+    """A hand kernel failed to build, load or launch: a fault of the code,
+    never of the moment, so nothing retries it."""
+
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_log: List[str] = []
@@ -89,7 +97,7 @@ def nvcc_path() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 def build_dir() -> Path:
@@ -124,7 +132,7 @@ def build() -> Dict[str, Path]:
         else:
             os.replace(tmp, paths[name])
     if failed:
-        raise RuntimeError(
+        raise KernelError(
             f"nvcc failed for {failed}:\n" + "\n".join(_build_log[-len(procs):])
         )
     return paths
@@ -141,7 +149,10 @@ def library(name: str) -> ctypes.CDLL:
         if name not in _libs:
             paths = build()
             for lib_name, path in paths.items():
-                lib = ctypes.CDLL(str(path))
+                try:
+                    lib = ctypes.CDLL(str(path))
+                except OSError as e:
+                    raise KernelError(f"loading {path}: {e}") from e
                 for fn, (owner, argtypes) in SIGNATURES.items():
                     if owner == lib_name:
                         func = getattr(lib, fn)
@@ -161,7 +172,7 @@ def launch(fn: str, *args, shape: str = "") -> None:
     owner, _ = SIGNATURES[fn]
     err = getattr(library(owner), fn)(*args)
     if err != 0:
-        raise RuntimeError(f"{fn}: CUDA error {err} ({_CUDA_ERRORS.get(err, 'see cuda_runtime_api.h')})")
+        raise KernelError(f"{fn}: CUDA error {err} ({_CUDA_ERRORS.get(err, 'see cuda_runtime_api.h')})")
     LAUNCHES[fn] += 1
     if shape:
         SHAPE_LAUNCHES[(fn, shape)] = SHAPE_LAUNCHES.get((fn, shape), 0) + 1

@@ -1,26 +1,47 @@
-"""Static Gaussian renderer (port of the JAX package's
-``renderers/gaussian.py``: ``GaussianRendererBase`` with the per-view loop
-and ``diff-gaussian-rasterizer``).
+"""Static Gaussian renderer and its variants (port of the JAX package's
+``renderers/gaussian.py``: ``GaussianRendererBase`` with the per-view loop,
+``diff-gaussian-rasterizer`` and its ``-advanced``, ``-background``,
+``-normal`` and ``-shading`` variants).
 
 The batch is rendered one view at a time, as the JAX package does at the
-training shape (its single-pass batched render is the next slice; the
-``batched`` keys are read and ignored).  Output keys mirror the reference
-batch renderer: comp_rgb (B, H, W, 3), comp_depth / comp_mask when the
-variant has them, the per-view stacked radii / visibility_filter, and the
-per-view pair counts n_pairs / n_dropped.
+training shape (its single-pass batched render is not ported; the
+``batched`` keys are read and ignored).  Every variant blends rgb and depth
+in one pass (C = 4) and post-processes the view:
+
+  * ``-advanced``: depth and alpha mask;
+  * ``-background``: the kernel background is zero and the neural
+    background (``SystemState.extra_params["background"]``, evaluated on the
+    view's ``rays_d``) is composited outside the kernel;
+  * ``-normal``: depth -> xyz through the view's ``rays_o``/``rays_d`` ->
+    screen-space normals, with the gradient of the normals and the depth
+    stopped where alpha <= 0.99;
+  * ``-shading``: albedo = image / max(alpha, 1e-4), lit by the material at
+    the view's ``light_positions``, composited over the neural background.
+
+Output keys mirror the reference batch renderer: comp_rgb (B, H, W, 3),
+comp_depth, comp_mask (B, H, W, 1), comp_normal, comp_rgb_bg (B, H, W, 3)
+where the variant has them, the per-view stacked radii / visibility_filter
+and the per-view pair counts n_pairs / n_dropped.
+
+Draws (the kernel background's inversion, the neural background's
+augmentation, the material's) come from the step's generator, view by view
+in that order; the test-only ``draws`` keyword (one dict per view) feeds
+them in instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..models import gaussian_field as gf
 from ..ops import camera as cam_ops
+from ..ops.image import depth_to_normal, normalize_vec
 from ..ops.rasterizer import RasterizeConfig, rasterize
 from ..utils.config import parse_structured
+from ..utils.draws import uniforms
 from ..utils.registry import register
 
 
@@ -39,12 +60,23 @@ class RendererConfig:
     batched_max_pairs: int = 256 * 1024
 
 
+def _view_tensor(batch, key: str, i: int, device) -> Optional[torch.Tensor]:
+    """View i of a batch entry (numpy or tensor) as an f32 tensor on
+    ``device``, or None when the batch has no such entry."""
+    if key not in batch:
+        return None
+    return torch.as_tensor(batch[key][i], dtype=torch.float32, device=device)
+
+
 class GaussianRendererBase:
     """Shared machinery.  Subclasses set class flags for channels."""
 
     Config = RendererConfig
     with_depth = False
     with_mask = False
+    with_normal = False
+    with_background = False
+    with_shading = False
 
     def __init__(self, cfg=None, geometry=None, material=None, background=None, **kw):
         if cfg is None:
@@ -56,17 +88,37 @@ class GaussianRendererBase:
         self.material = material
         self.background = background
 
-    def _kernel_bg(self, generator: Optional[torch.Generator], training: bool, device):
-        """Per-view kernel background colour: training inverts it when a
-        uniform draw exceeds invert_bg_prob; eval always inverts (reference
-        quirk)."""
+    def _kernel_bg(self, generator: Optional[torch.Generator], training: bool, device,
+                   draws: Optional[Dict[str, Any]] = None):
+        """Per-view kernel background colour: zero under a neural background
+        (composited outside the kernel); else training inverts it when a
+        uniform draw exceeds invert_bg_prob, and eval always inverts
+        (reference quirk)."""
         base_bg = torch.tensor(self.cfg.back_ground_color, dtype=torch.float32, device=device)
-        if training and generator is not None:
-            draw = torch.rand((), generator=generator, device=generator.device)
-            return torch.where(draw.to(device) > self.cfg.invert_bg_prob, 1.0 - base_bg, base_bg)
+        if self.with_background:
+            return torch.zeros(3, device=device)
+        if training and (generator is not None or draws):
+            draw = uniforms(draws, "invert_bg", 1, generator, device)
+            return torch.where(draw > self.cfg.invert_bg_prob, 1.0 - base_bg, base_bg)
         return 1.0 - base_bg
 
-    def _post_view(self, out: Dict[str, Any]) -> Dict[str, Any]:
+    def _post_view(
+        self,
+        out: Dict[str, Any],
+        *,
+        bg_params=None,
+        rays_o=None,
+        rays_d=None,
+        light_positions=None,
+        generator=None,
+        ambient_only: bool = False,
+        training: bool = False,
+        ambient_ratio=None,
+        shading: Optional[str] = None,
+        draws: Optional[Dict[str, Any]] = None,
+    ) -> Dict[str, Any]:
+        """Channel post-processing of one view's rasterizer output
+        (background composite, depth -> normal, material shading)."""
         result: Dict[str, Any] = {
             "render": torch.clamp(out["image"], 0.0, 1.0),
             "radii": out["radii"],
@@ -74,10 +126,38 @@ class GaussianRendererBase:
             "n_dropped": out["n_dropped"],
             "n_pairs": out["n_pairs"],
         }
+        alpha = out["alpha"][..., None]
+        depth = out["depth"]
         if self.with_mask:
             result["mask"] = out["alpha"]
         if self.with_depth:
-            result["depth"] = out["depth"]
+            result["depth"] = depth
+
+        bg_color = None
+        if self.with_background and self.background is not None:
+            bg_color = self.background(bg_params, rays_d, generator=generator, training=training,
+                                       draws=draws)  # (H, W, 3)
+            result["render"] = torch.clamp(out["image"] + (1.0 - alpha) * bg_color, 0.0, 1.0)
+            result["comp_rgb_bg"] = bg_color
+
+        if self.with_normal:
+            xyz_map = rays_o + depth[..., None] * rays_d
+            normal_map = normalize_vec(depth_to_normal(xyz_map)) * 0.5 * alpha + 0.5
+            confident = alpha > 0.99  # gradients flow only where the render is opaque
+            result["normal"] = torch.where(confident, normal_map, normal_map.detach())
+            result["depth"] = torch.where(confident[..., 0], depth, depth.detach())
+
+        if self.with_shading and self.material is not None:
+            albedo = torch.clamp(out["image"] / torch.clamp_min(alpha, 1e-4), 0.0, 1.0)
+            shaded = self.material.shade(
+                rays_o + depth[..., None] * rays_d, result["normal"] * 2.0 - 1.0,
+                light_positions, albedo, generator=generator, ambient_only=ambient_only,
+                training=training, ambient_ratio=ambient_ratio, shading=shading, draws=draws,
+            )
+            comp = shaded * alpha
+            if bg_color is not None:
+                comp = comp + (1.0 - alpha) * bg_color
+            result["render"] = torch.clamp(comp, 0.0, 1.0)
         return result
 
     def render_one(
@@ -85,18 +165,26 @@ class GaussianRendererBase:
         gauss: gf.GaussianState,
         camera: cam_ops.Camera,
         *,
+        bg_params=None,
+        rays_o=None,
+        rays_d=None,
+        light_positions=None,
         generator: Optional[torch.Generator] = None,
+        ambient_only: bool = False,
         training: bool = False,
         color_clip: float = float("inf"),
         means2d_offset: Optional[torch.Tensor] = None,
         override_color: Optional[torch.Tensor] = None,
         scaling_modifier: float = 1.0,
+        ambient_ratio=None,
+        shading: Optional[str] = None,
+        draws: Optional[Dict[str, Any]] = None,
     ) -> Dict[str, Any]:
         cfg = self.cfg
         geo = self.geometry
         params = gauss.params
         device = params.xyz.device
-        kernel_bg = self._kernel_bg(generator, training, device)
+        kernel_bg = self._kernel_bg(generator, training, device, draws)
         sh_coeffs = None
         colors = override_color
         if colors is None:
@@ -116,18 +204,27 @@ class GaussianRendererBase:
             scaling_modifier=scaling_modifier,
             config=RasterizeConfig(tile_size=cfg.tile_size, max_pairs=cfg.max_pairs),
         )
-        return self._post_view(out)
+        return self._post_view(
+            out, bg_params=bg_params, rays_o=rays_o, rays_d=rays_d,
+            light_positions=light_positions, generator=generator, ambient_only=ambient_only,
+            training=training, ambient_ratio=ambient_ratio, shading=shading, draws=draws,
+        )
 
     def batch_forward(
         self,
         gauss: gf.GaussianState,
         batch: Dict[str, Any],
         *,
+        bg_params=None,
         generator: Optional[torch.Generator] = None,
+        ambient_only: bool = False,
         training: bool = False,
         color_clip: float = float("inf"),
         means2d_offset: Optional[torch.Tensor] = None,  # (B, N, 2) zeros
         override_color=None,
+        ambient_ratio=None,
+        shading: Optional[str] = None,
+        draws: Optional[List[Dict[str, Any]]] = None,  # one dict per view
     ) -> Dict[str, Any]:
         c2w = batch["c2w"]
         bs = c2w.shape[0]
@@ -143,11 +240,19 @@ class GaussianRendererBase:
                 self.render_one(
                     gauss,
                     camera,
+                    bg_params=bg_params,
+                    rays_o=_view_tensor(batch, "rays_o", i, device),
+                    rays_d=_view_tensor(batch, "rays_d", i, device),
+                    light_positions=_view_tensor(batch, "light_positions", i, device),
                     generator=generator,
+                    ambient_only=ambient_only,
                     training=training,
                     color_clip=color_clip,
                     means2d_offset=None if means2d_offset is None else means2d_offset[i],
                     override_color=override_color,
+                    ambient_ratio=ambient_ratio,
+                    shading=shading,
+                    draws=None if draws is None else draws[i],
                 )
             )
         return self._stack_views(per_view)
@@ -161,12 +266,52 @@ class GaussianRendererBase:
             "n_dropped": torch.tensor([o["n_dropped"] for o in per_view]),
             "n_pairs": torch.tensor([o["n_pairs"] for o in per_view]),
         }
-        for name, out_name in (("depth", "comp_depth"), ("mask", "comp_mask")):
+        for name, out_name in (("depth", "comp_depth"), ("mask", "comp_mask"),
+                               ("normal", "comp_normal"), ("comp_rgb_bg", "comp_rgb_bg")):
             if name in per_view[0]:
-                outputs[out_name] = torch.stack([o[name] for o in per_view])[..., None]
+                stacked = torch.stack([o[name] for o in per_view])
+                outputs[out_name] = stacked[..., None] if stacked.dim() == 3 else stacked
         return outputs
 
 
 @register("diff-gaussian-rasterizer")
 class DiffGaussianRasterizer(GaussianRendererBase):
     """Vanilla render: rgb only."""
+
+
+@register("diff-gaussian-rasterizer-advanced")
+class DiffGaussianRasterizerAdvanced(GaussianRendererBase):
+    """Also returns depth and the alpha mask."""
+
+    with_depth = True
+    with_mask = True
+
+
+@register("diff-gaussian-rasterizer-background")
+class DiffGaussianRasterizerBackground(GaussianRendererBase):
+    """The neural background composited over a zero-background render."""
+
+    with_depth = True
+    with_mask = True
+    with_background = True
+
+
+@register("diff-gaussian-rasterizer-normal")
+class DiffGaussianRasterizerNormal(GaussianRendererBase):
+    """Depth-derived screen-space normals."""
+
+    with_depth = True
+    with_mask = True
+    with_normal = True
+
+
+@register("diff-gaussian-rasterizer-shading")
+class DiffGaussianRasterizerShading(GaussianRendererBase):
+    """Normals, point-light shading by the material, and the neural
+    background."""
+
+    with_depth = True
+    with_mask = True
+    with_normal = True
+    with_shading = True
+    with_background = True

@@ -10,9 +10,12 @@ Scheduled hyperparameters (per-group learning rates, color_clip, loss
 lambdas, the SDS timestep window) are evaluated on the host with C() each
 step.  A (B, CAP, 2) zeros tensor that requires grad is added to the screen
 positions of every view; its gradient is the means2d side channel whose
-norms feed the densification statistics.  The step ends with the
-structural update when one is due (its draws from the step's generator).
-Evaluation renders views without gradients and saves validation PNGs."""
+norms feed the densification statistics.  The extra parameters (the neural
+background's MLP, ``extra_params["background"]``) take their own Adam step
+(eps 1e-8) at ``extra_lr``.  The step ends with the structural update when
+one is due (its draws from the step's generator).  Evaluation renders views
+without gradients (the background parameters included) and saves
+validation PNGs."""
 
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..models import gaussian_field as gf
+from ..models.optim import AdamState, adam_update, init_adam
 from ..utils.config import C, C_max, parse_structured
 from ..utils.registry import find
 from ..utils.saving import save_image_grid
@@ -32,7 +36,23 @@ from ..utils.saving import save_image_grid
 @dataclasses.dataclass
 class SystemState:
     gauss: gf.GaussianState
-    extra_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # {group: {name: tensor}}, e.g. {"background": {"w0": ..., "b0": ...}}
+    extra_params: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict)
+    # Adam over the extra parameters, keyed "group/name"; None without them
+    extra_opt: Optional[AdamState] = None
+
+
+def flatten_extra(extra: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """{group: {name: t}} -> {"group/name": t}."""
+    return {f"{group}/{name}": t for group, leaves in extra.items() for name, t in leaves.items()}
+
+
+def unflatten_extra(flat: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, torch.Tensor]]:
+    extra: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, t in flat.items():
+        group, name = key.split("/", 1)
+        extra.setdefault(group, {})[name] = t
+    return extra
 
 
 @dataclasses.dataclass
@@ -85,14 +105,33 @@ class BaseGaussianSystem:
             find(cfg.guidance_type)(cfg.guidance, device=self.device) if cfg.guidance_type else None
         )
         self.prompt_processor = (
-            find(cfg.prompt_processor_type)(cfg.prompt_processor)
+            find(cfg.prompt_processor_type)(cfg.prompt_processor, device=self.device)
             if cfg.prompt_processor_type else None
         )
         self.prompt_utils = self.prompt_processor() if self.prompt_processor else None
+        # the JAX package's rule as written: optimizer.args.lr, when set,
+        # takes precedence over optimizer.params.background.lr
+        opt = cfg.optimizer if isinstance(cfg.optimizer, dict) else {}
+        self.extra_lr = float(
+            (opt.get("args") or {}).get("lr")
+            or ((opt.get("params") or {}).get("background") or {}).get("lr")
+            or 1e-3
+        )
 
     # -- state --------------------------------------------------------------
     def init_state(self, seed: int = 0) -> SystemState:
-        return SystemState(gauss=self.geometry.init_state(seed))
+        """The geometry's initial field and, with a background that has
+        parameters, those parameters (drawn from a generator seeded with
+        ``seed`` on the system's device) and their zeroed Adam moments."""
+        gauss = self.geometry.init_state(seed)
+        extra: Dict[str, Dict[str, torch.Tensor]] = {}
+        if self.background is not None:
+            params = self.background.init_params(
+                torch.Generator(device=self.device).manual_seed(seed))
+            if params:
+                extra["background"] = params
+        return SystemState(gauss=gauss, extra_params=extra,
+                           extra_opt=init_adam(flatten_extra(extra)) if extra else None)
 
     # -- scheduled scalars ---------------------------------------------------
     def loss_lambda(self, sched, name: str) -> float:
@@ -118,6 +157,8 @@ class BaseGaussianSystem:
         }
         if self.guidance is not None and hasattr(self.guidance, "sched_scalars"):
             sched["guidance"] = self.guidance.sched_scalars(step)
+        if self.material is not None and hasattr(self.material.cfg, "ambient_only_steps"):
+            sched["ambient_only"] = step < self.material.cfg.ambient_only_steps
         return sched
 
     # -- losses (overridden per system) -------------------------------------
@@ -125,9 +166,13 @@ class BaseGaussianSystem:
         raise NotImplementedError
 
     # -- forward ------------------------------------------------------------
-    def render_batch(self, gauss, batch, generator, sched, training, vs_dummy=None):
+    def render_batch(self, gauss, extra_params, batch, generator, sched, training,
+                     vs_dummy=None):
         return self.renderer.batch_forward(
-            gauss, batch, generator=generator, training=training,
+            gauss, batch,
+            bg_params=extra_params.get("background") if extra_params else None,
+            generator=generator, training=training,
+            ambient_only=bool(sched.get("ambient_only", False)) if sched else False,
             color_clip=sched["color_clip"] if sched else 1e9,
             means2d_offset=vs_dummy,
         )
@@ -141,16 +186,25 @@ class BaseGaussianSystem:
         leaves = {
             k: v.detach().requires_grad_(True) for k, v in gauss.params.as_dict().items()
         }
+        extra = {k: v.detach().requires_grad_(True)
+                 for k, v in flatten_extra(state.extra_params).items()}
         vs_dummy = torch.zeros((bs, gauss.capacity, 2), device=self.device, requires_grad=True)
         gs = dataclasses.replace(gauss, params=gf.GaussianParams(**leaves))
-        out = self.render_batch(gs, batch, generator, sched, True, vs_dummy)
+        out = self.render_batch(gs, unflatten_extra(extra), batch, generator, sched, True,
+                                vs_dummy)
         total, logs = self.compute_loss(out, gs, batch, sched, generator)
 
-        inputs = list(leaves.values()) + [vs_dummy]
+        inputs = list(leaves.values()) + list(extra.values()) + [vs_dummy]
         grads = torch.autograd.grad(total, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
-        g_gauss = dict(zip(leaves.keys(), grads[:-1]))
+        g_gauss = dict(zip(leaves.keys(), grads[:len(leaves)]))
         gauss = gf.apply_gradients(gauss, g_gauss, sched["lrs"])
+        extra_params, extra_opt = state.extra_params, state.extra_opt
+        if extra:
+            g_extra = dict(zip(extra.keys(), grads[len(leaves):-1]))
+            new = adam_update({k: v.detach() for k, v in extra.items()}, g_extra, extra_opt,
+                              {k: self.extra_lr for k in extra}, eps=1e-8)
+            extra_params = unflatten_extra(new)
         vs_grad_norm = torch.linalg.norm(grads[-1], dim=-1)  # (B, CAP), NDC units
         gauss = gf.accumulate_stats(
             gauss, out["radii"].float(), out["visibility_filter"], vs_grad_norm
@@ -159,7 +213,7 @@ class BaseGaussianSystem:
         logs["n_dropped_pairs"] = int(out["n_dropped"].sum())
         logs["n_pairs_max"] = int((out["n_pairs"] + out["n_dropped"]).max())
         gauss, _ = self.geometry.update_states(gauss, step, generator)
-        return SystemState(gauss=gauss, extra_params=state.extra_params), logs
+        return SystemState(gauss=gauss, extra_params=extra_params, extra_opt=extra_opt), logs
 
     # -- eval ---------------------------------------------------------------
     @torch.no_grad()
@@ -168,7 +222,7 @@ class BaseGaussianSystem:
         draws), each output brought to the host as numpy."""
         outs = []
         for view in views:
-            out = self.render_batch(state.gauss, view, None, None, False)
+            out = self.render_batch(state.gauss, state.extra_params, view, None, None, False)
             outs.append({k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
                          for k, v in out.items()})
         return outs

@@ -58,6 +58,8 @@ class GaussianSplattingSystem(BaseGaussianSystem):
 
         if self.has_loss("lambda_depth_tv_loss") and "comp_depth" in out:
             terms = tv_loss(out["comp_depth"])
+            if "comp_normal" in out:
+                terms = terms + tv_loss(out["comp_normal"])
             logs["train/loss_depth_tv"] = terms
             loss = loss + self.loss_lambda(sched, "lambda_depth_tv_loss") * terms
 

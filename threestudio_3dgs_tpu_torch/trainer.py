@@ -6,6 +6,12 @@ Drives the train / validate / test / predict / export lifecycle:
     logged to ``metrics.jsonl`` on logged steps (which is where the host
     reads the losses), validation and checkpoints at their intervals;
     ``resume`` continues from a port checkpoint at its step;
+  * fault tolerance (``trainer.fault_tolerance``): a step that fails writes
+    ``ckpts/crash.ckpt.npz`` and is retried up to ``max_retries`` times
+    after ``retry_wait_s``; programming errors and any failure of a hand
+    kernel's build or launch (``ops.native.KernelError``) are raised at
+    once, never retried; ``nan_patience`` logged steps in a row with a
+    non-finite total loss save ``nan.ckpt.npz`` and raise;
   * validate / test: fixed-circle renders -> PNGs (-> video where imageio
     exists), and the point-cloud PLY after the test renders;
   * export: the exporter's PLY and mesh;
@@ -22,11 +28,16 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .systems.base import SystemState
+from .ops.native import KernelError
 from .utils.ckpt import load_checkpoint, save_checkpoint
 from .utils.config import ExperimentConfig, dump_config
 from .utils.registry import find
 from .utils.saving import save_image_grid, save_img_sequence
+
+
+# failures that a retry cannot cure: raised at once
+NOT_RETRIED = (TypeError, ValueError, AttributeError, KeyError, IndexError, AssertionError,
+               KernelError)
 
 
 def _host(v: Any) -> float:
@@ -48,6 +59,8 @@ class Trainer:
         self.save_dir = cfg.trial_dir or "outputs/debug"
         os.makedirs(self.save_dir, exist_ok=True)
         ft = cfg.trainer.get("fault_tolerance", {}) or {}
+        self.ft_max_retries = int(ft.get("max_retries", 1))
+        self.ft_retry_wait_s = float(ft.get("retry_wait_s", 10.0))
         self.ft_nan_patience = int(ft.get("nan_patience", 3))
         self.state = None
         self.step = 0
@@ -61,8 +74,7 @@ class Trainer:
     def load_state(self, resume: Optional[str]) -> None:
         """The state of a port checkpoint (and its step), or a fresh init."""
         if resume:
-            gauss, self.step = load_checkpoint(resume, self.device)
-            self.state = SystemState(gauss=gauss)
+            self.state, self.step = load_checkpoint(resume, self.device)
         else:
             self.state = self.system.init_state(self.cfg.seed)
 
@@ -75,11 +87,25 @@ class Trainer:
             self.state = self.system.init_state(self.cfg.seed)
         generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         nan_streak = 0
+        retries = 0
         t_start = time.time()
         while self.step < self.max_steps:
             t_step = time.perf_counter()
             batch = self.data.train_batch(self.step)
-            self.state, logs = self.system.train_step(self.state, batch, self.step, generator)
+            try:
+                self.state, logs = self.system.train_step(self.state, batch, self.step, generator)
+            except NOT_RETRIED:
+                raise
+            except Exception as e:  # a device fault, an out-of-memory
+                retries += 1
+                self._crash_checkpoint(e)
+                if retries > self.ft_max_retries:
+                    raise
+                print(f"[trainer] retry {retries}/{self.ft_max_retries} in "
+                      f"{self.ft_retry_wait_s:.0f}s", flush=True)
+                time.sleep(self.ft_retry_wait_s)
+                continue
+            retries = 0
             self.step += 1
 
             if self.step % self.log_every == 0 or self.step == 1:
@@ -112,6 +138,22 @@ class Trainer:
                 self.save_ckpt("last.ckpt.npz")
         self.save_ckpt("last.ckpt.npz")
         return self.state
+
+    def _crash_checkpoint(self, error: Exception) -> None:
+        """Save the state the failed step started from to crash.ckpt.npz
+        (reported, not raised, if the state itself cannot be saved).  The
+        Adam moments are updated in place, so a step that failed after its
+        optimiser update leaves them, and its retry starts from, one
+        update ahead."""
+        path = os.path.join(self.save_dir, "ckpts", "crash.ckpt.npz")
+        name = type(error).__name__
+        try:
+            save_checkpoint(path, self.state, self.step)
+            print(f"[trainer] step {self.step} failed ({name}: {error}); emergency checkpoint "
+                  f"-> {path}", flush=True)
+        except Exception as e2:  # the state may be poisoned
+            print(f"[trainer] step {self.step} failed ({name}) and the emergency checkpoint "
+                  f"also failed ({e2})", flush=True)
 
     def validate(self):
         views = self.data.val_views()

@@ -1,6 +1,9 @@
 """Checkpoints of the training state as ``.npz``: the Gaussian field's
-params, Adam moments and count, ``alive`` and statistics, plus the step.
-Keys are slash-joined field paths (``params/xyz``, ``adam/mu/xyz``, ...).
+params, Adam moments and count, ``alive`` and statistics, the extra
+parameters (the neural background's MLP) with their Adam moments and
+count, plus the step.  Keys are slash-joined field paths
+(``gauss/params/xyz``, ``gauss/adam/mu/xyz``, ``extra/params/background/w0``,
+``extra/adam/mu/background/w0``, ...).
 
 ``load_checkpoint`` reads the port's own files only.  A JAX package
 checkpoint stores its leaves by position beside a pickled JAX treedef,
@@ -34,6 +37,15 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
 def save_checkpoint(path: str, state: Any, step: int) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arrays = _flatten({"gauss": to_numpy(state.gauss)})
+    if state.extra_params:
+        def host(flat):
+            return {k: v.detach().cpu().numpy() for k, v in flat.items()}
+
+        opt = state.extra_opt
+        arrays.update(_flatten({"extra": {
+            "params": {g: host(leaves) for g, leaves in state.extra_params.items()},
+            "adam": {"mu": host(opt.mu), "nu": host(opt.nu), "count": opt.count},
+        }}))
     arrays["__step__"] = np.asarray(step)
     np.savez(path, **arrays)
 
@@ -45,20 +57,34 @@ def load_checkpoint_arrays(path: str) -> Tuple[Dict[str, np.ndarray], int]:
     return arrays, int(arrays.pop("__step__"))
 
 
-def load_checkpoint(path: str, device="cuda") -> Tuple[GaussianState, int]:
-    """The Gaussian-field state a port checkpoint holds, on `device`, and
-    its step."""
-    arrays, step = load_checkpoint_arrays(path)
-
+def _gauss_from_arrays(arrays: Dict[str, np.ndarray], device) -> GaussianState:
     def fields(prefix):
         return {k: torch.as_tensor(arrays[f"gauss/{prefix}{k}"], device=device)
                 for k in PARAM_FIELDS if f"gauss/{prefix}{k}" in arrays}  # normal is optional
 
-    state = GaussianState(
+    return GaussianState(
         params=GaussianParams(**fields("params/")),
         adam=AdamState(mu=fields("adam/mu/"), nu=fields("adam/nu/"),
                        count=int(arrays["gauss/adam/count"])),
         alive=torch.as_tensor(arrays["gauss/alive"], device=device),
         **{k: torch.as_tensor(arrays[f"gauss/{k}"], device=device) for k in STAT_FIELDS},
     )
-    return state, step
+
+
+def load_checkpoint(path: str, device="cuda") -> Tuple[Any, int]:
+    """The ``SystemState`` a port checkpoint holds (the field, and the
+    extra parameters with their Adam state where it has them), on `device`,
+    and its step."""
+    from ..systems.base import SystemState, unflatten_extra
+
+    arrays, step = load_checkpoint_arrays(path)
+
+    def extra(prefix):
+        return {k[len(prefix):]: torch.as_tensor(v, device=device)
+                for k, v in arrays.items() if k.startswith(prefix)}
+
+    extra_params = unflatten_extra(extra("extra/params/"))
+    extra_opt = AdamState(mu=extra("extra/adam/mu/"), nu=extra("extra/adam/nu/"),
+                          count=int(arrays["extra/adam/count"])) if extra_params else None
+    return SystemState(gauss=_gauss_from_arrays(arrays, device), extra_params=extra_params,
+                       extra_opt=extra_opt), step

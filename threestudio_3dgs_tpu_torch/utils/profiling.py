@@ -2,7 +2,7 @@
 ``utils/profiling.py`` idea: a device trace of the hot path).
 
     python -m threestudio_3dgs_tpu_torch.utils.profiling [--steps 3] [--trace-dir DIR]
-        [--sd-dir DIR]
+        [--sd-dir DIR | --config YAML [key=value ...]]
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), these windows:
 
@@ -16,7 +16,10 @@ Profiles, with ``torch.profiler`` (CPU and CUDA activities), these windows:
     SD 2.1-base one is written there first if it holds no weights), and
     its two guidance stages alone on the step's shapes: ``sd_unet`` (one
     UNet call on the CFG batch of 8) and ``sd_vae`` (VAE encode of the 4
-    views, forward and backward).
+    views, forward and backward);
+  * with ``--config`` instead of the above: ``train_<config name>``, the
+    training steps of that YAML with the given overrides (e.g. a guidance
+    or prompt-processor directory, the material's warm-up).
 
 For each window it prints the wall time per iteration (host clock around
 work that ends in a synchronise, without and with the profiler), for the
@@ -253,16 +256,18 @@ def tiny_sd_card_vs_cpu(root: str, seed: int = 0) -> Dict[str, tuple]:
     return results
 
 
-def train_step(device, run_dir: str, sd_dir: str = "") -> Callable[[], None]:
-    """One training step of gaussian_splatting.yaml at its own shape, with
-    fake guidance, or with its own SD guidance on ``sd_dir``."""
+DEFAULT_CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs",
+                              "gaussian_splatting.yaml")
+
+
+def train_step(device, run_dir: str, config: str = DEFAULT_CONFIG,
+               overrides=("system.guidance_type=fake-sds-guidance",)) -> Callable[[], None]:
+    """One training step of ``config`` at its own shape with its
+    ``overrides`` (by default gaussian_splatting.yaml with fake guidance)."""
     from ..trainer import Trainer
     from ..utils.config import load_config
 
-    config = os.path.join(os.path.dirname(__file__), "..", "configs", "gaussian_splatting.yaml")
-    guidance = ([f"system.guidance.pretrained_model_name_or_path={sd_dir}"] if sd_dir
-                else ["system.guidance_type=fake-sds-guidance"])
-    cfg = load_config(config, guidance + [
+    cfg = load_config(config, list(overrides) + [
         f"exp_root_dir={run_dir}", "trainer.val_check_interval=0",
     ])
     trainer = Trainer(cfg, device=device)
@@ -310,6 +315,9 @@ def main(argv: List[str] = None) -> Dict[str, Dict]:
     parser.add_argument("--run-dir", default=os.path.join("outputs", "profile"))
     parser.add_argument("--trace-dir", default="", help="write chrome traces here")
     parser.add_argument("--sd-dir", default="", help="also profile SD guidance on this directory")
+    parser.add_argument("--config", default="",
+                        help="profile only the training step of this config")
+    parser.add_argument("overrides", nargs="*", help="dotlist overrides of --config")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
@@ -318,12 +326,17 @@ def main(argv: List[str] = None) -> Dict[str, Dict]:
         os.makedirs(args.trace_dir, exist_ok=True)
     windows = [("train", lambda: train_step(device, args.run_dir)),
                ("render", lambda: render_step(bench_scene(device)))]
-    if args.sd_dir:
+    if args.config:
+        name = "train_" + os.path.splitext(os.path.basename(args.config))[0]
+        windows = [(name, lambda: train_step(device, args.run_dir, args.config, args.overrides))]
+    elif args.sd_dir:
         from ..diffusion.convert import write_random_checkpoint
 
         if not os.path.exists(os.path.join(args.sd_dir, "unet", "diffusion_pytorch_model.bin")):
             write_random_checkpoint(args.sd_dir, seed=0, device=device)
-        windows.append(("train_sd", lambda: train_step(device, args.run_dir, args.sd_dir)))
+        windows.append(("train_sd", lambda: train_step(
+            device, args.run_dir,
+            overrides=[f"system.guidance.pretrained_model_name_or_path={args.sd_dir}"])))
     results = {}
     while windows:
         name, make = windows.pop(0)
