@@ -2,8 +2,9 @@
 flash_attention) against the JAX package on the CPU: K5's plain twin
 against the Pallas kernel ``_flash_bhnd`` in interpret mode, the routing
 rule, the rule that picks K5's kernel on the card, the forward-only guard,
-a CPU model of both K5 kernels' arithmetic (ragged n, a rising max) and
-the power of the bf16 limit K5 is held to.  K5 itself is held against the
+a CPU model of both K5 kernels' arithmetic (ragged n, a rising max; the f32
+kernel's three-way bf16 split) and the power of the bf16 and f32 limits K5
+is held to.  K5 itself is held against the
 plain twin on the card (tests/test_torch_gpu.py and chip_smoke.py)."""
 
 import math
@@ -17,7 +18,7 @@ from threestudio_3dgs_tpu.ops.flash_attention import _flash_bhnd
 from threestudio_3dgs_tpu.ops.flash_attention import attention_reference as jax_reference
 
 from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
-from threestudio_3dgs_tpu_torch.utils.profiling import k5_inputs, k5_tolerance
+from threestudio_3dgs_tpu_torch.utils.profiling import k5_float64, k5_inputs, k5_tolerance
 
 
 def qkv(bh, n, d, seed):
@@ -67,20 +68,70 @@ def test_routing_rule(q_shape, k_shape, device, want):
 
 
 LOG2E = math.log2(math.e)
-# (key tile, exp2 with log2(e) folded into the scale): the CUDA-core kernel
-# (f32 on the card; bf16 until the wgmma kernel) and the bf16 wgmma kernel
-KERNEL_MODELS = {"cuda_core": (64, False), "wgmma": (128, True)}
 
 
-def online_softmax_model(q, k, v, scale, skip_tile=None, tile=64, exp2=False):
+def exact_product(a, b):
+    """a b with every product exact and the sums in f32."""
+    return torch.matmul(a.float(), b.float())
+
+
+def bf16_planes(x, count):
+    """x as ``count`` bf16 values (held in f32), each the round-to-nearest
+    bf16 of what the earlier ones leave: b0 = bf16(x), b1 = bf16(x - b0), ..."""
+    planes, rest = [], x.float()
+    for _ in range(count):
+        planes.append(rest.to(torch.bfloat16).float())
+        rest = rest - planes[-1]
+    return planes
+
+
+def split_product(terms):
+    """a b as the plane products a_i b_j of ``terms`` (in that order), laid
+    side by side along the reduced axis: one f32 accumulator, as the f32
+    kernel's wgmma steps sum them."""
+    count = 1 + max(max(t) for t in terms)
+
+    def product(a, b):
+        pa, pb = bf16_planes(a, count), bf16_planes(b, count)
+        return torch.matmul(torch.cat([pa[i] for i, _ in terms], -1),
+                            torch.cat([pb[j] for _, j in terms], -2))
+
+    return product
+
+
+def tf32_product(a, b):
+    """One TF32 pass: a and b rounded to 10-bit mantissas (to nearest, ties
+    away), the sums in f32."""
+    def tf32(x):
+        bits = x.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    return torch.matmul(tf32(a), tf32(b))
+
+
+# the f32 kernel's six plane products (i + j <= 2, the smallest first), and
+# the three of a two-way split
+SPLIT_6 = split_product(((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)))
+SPLIT_3 = split_product(((1, 0), (0, 1), (0, 0)))
+# (key tile, exp2 with log2(e) folded into the scale, the products of S and
+# P V): the f32 kernel (64-key tiles, exp, the six-product split of both)
+# and the bf16 wgmma kernel
+KERNEL_MODELS = {"split_bf16": (64, False, (SPLIT_6, SPLIT_6)),
+                 "wgmma": (128, True, (exact_product, exact_product))}
+
+
+def online_softmax_model(q, k, v, scale, skip_tile=None, tile=64, exp2=False,
+                         products=(exact_product, exact_product)):
     """K5's arithmetic on the CPU: key tiles of ``tile`` (the last one
     ragged), running max and sum in f32, p rounded to the input type before
     p . v, l summing the unrounded p, the f32 accumulator rescaled when the
-    max grows.  Without ``exp2``: s = (q . k) scale, p = exp(s - m).  With
-    ``exp2`` (the wgmma kernel): the max is taken of the unscaled scores and
+    max grows; S = ``products[0]``(q, k^T), P V = ``products[1]``(p, v).
+    Without ``exp2``: s = (q . k) scale, p = exp(s - m).  With ``exp2``
+    (the wgmma kernel): the max is taken of the unscaled scores and
     p = exp2(s c - m c), c = scale log2(e) in f32.  ``skip_tile`` leaves one
     tile out (a broken kernel)."""
     bh, n, d = q.shape
+    s_product, pv_product = products
     c = torch.tensor(scale * LOG2E, dtype=torch.float32)
     m = torch.full((bh, n, 1), -float("inf"))
     l = torch.zeros((bh, n, 1))
@@ -89,7 +140,7 @@ def online_softmax_model(q, k, v, scale, skip_tile=None, tile=64, exp2=False):
         if j == skip_tile:
             continue
         kt, vt = k[:, j * tile:(j + 1) * tile], v[:, j * tile:(j + 1) * tile]
-        s = torch.matmul(q.float(), kt.float().transpose(1, 2))
+        s = s_product(q, kt.transpose(1, 2))
         if not exp2:
             s = s * scale
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
@@ -98,7 +149,7 @@ def online_softmax_model(q, k, v, scale, skip_tile=None, tile=64, exp2=False):
         else:
             p, alpha = torch.exp(s - m_new), torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        o = o * alpha + torch.matmul(p.to(v.dtype).float(), vt.float())
+        o = o * alpha + pv_product(p.to(v.dtype), vt)
         m = m_new
     return (o / l).to(q.dtype)
 
@@ -113,20 +164,22 @@ def max_diff(a, b):
 def test_bf16_check_limit_has_power(bh, n, broken, kernel):
     """The limit that chip_smoke.py and the card tests hold K5 to in bf16
     (profiling.k5_tolerance), at the UNet's two sequence lengths on a few
-    of its (batch * head) rows, for the CUDA-core kernel's 64-key tiles and
+    of its (batch * head) rows, for the f32 kernel's 64-key tiles and
+    split products (exact on bf16 inputs, whose lower planes are zero) and
     the wgmma kernel's 128-key tiles with exp2: a model of the kernel's
     arithmetic passes it, and the same model without its first, middle or
     last key tile misses it by more than 10x."""
-    tile, exp2 = KERNEL_MODELS[kernel]
+    tile, exp2, products = KERNEL_MODELS[kernel]
     q, k, v = k5_inputs(bh, n, torch.bfloat16, seed=10, device="cpu")
     want = fa.flash_bhnd_torch(q, k, v, 0.125)
     tol = k5_tolerance(want)
     if not broken:
-        got = online_softmax_model(q, k, v, 0.125, tile=tile, exp2=exp2)
+        got = online_softmax_model(q, k, v, 0.125, tile=tile, exp2=exp2, products=products)
         assert max_diff(got, want) <= tol
         return
     for skip in (0, n // (2 * tile), n // tile - 1):
-        got = online_softmax_model(q, k, v, 0.125, skip_tile=skip, tile=tile, exp2=exp2)
+        got = online_softmax_model(q, k, v, 0.125, skip_tile=skip, tile=tile, exp2=exp2,
+                                   products=products)
         assert max_diff(got, want) > 10 * tol, skip
 
 
@@ -135,8 +188,9 @@ def test_bf16_check_limit_has_power(bh, n, broken, kernel):
 def test_model_with_rising_max(kernel, dtype):
     """Keys in rising norm (logits spanning about +-30): the running max
     grows in every key tile for most rows, so every tile rescales O and l;
-    the model stays within k5_tolerance of the plain twin."""
-    tile, exp2 = KERNEL_MODELS[kernel]
+    the model stays within k5_tolerance of the plain twin, and of the same
+    function evaluated in float64."""
+    tile, exp2, products = KERNEL_MODELS[kernel]
     tdt = getattr(torch, dtype)
     q, k, v = k5_inputs(2, 1024, tdt, seed=11, device="cpu", rising=True)
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * 0.125
@@ -145,8 +199,31 @@ def test_model_with_rising_max(kernel, dtype):
     grows = (tile_max[..., 1:] > tile_max[..., :-1].cummax(-1).values).float().mean()
     assert float(grows) > 0.5
     want = fa.flash_bhnd_torch(q, k, v, 0.125)
-    got = online_softmax_model(q, k, v, 0.125, tile=tile, exp2=exp2)
+    got = online_softmax_model(q, k, v, 0.125, tile=tile, exp2=exp2, products=products)
     assert max_diff(got, want) <= k5_tolerance(want)
+    exact = k5_float64(q, k, v, 0.125).to(tdt)
+    assert max_diff(got, exact) <= k5_tolerance(exact)
+
+
+@pytest.mark.parametrize("bh,n,pv3_factor,tf32_factor,f64_gain", [
+    (2, 1024, 1.21, 662, 3.70), (2, 4096, 1.33, 770, 2.07)])
+def test_f32_split_limit_has_power(bh, n, pv3_factor, tf32_factor, f64_gain):
+    """The f32 limit (2e-5) at keys in rising norm, where the plain twin is
+    itself about 1.4e-5 from float64: the f32 kernel's model (six plane
+    products of both S and P V) passes it and is 2-3.7x closer to float64
+    than the plain twin; the same model misses it with a two-way split of
+    P V (three products) and with one TF32 pass of both, by the factors
+    measured on these inputs."""
+    q, k, v = k5_inputs(bh, n, torch.float32, seed=11, device="cpu", rising=True)
+    want, exact = fa.flash_bhnd_torch(q, k, v, 0.125), k5_float64(q, k, v, 0.125)
+    tol = k5_tolerance(want)
+    got = online_softmax_model(q, k, v, 0.125, products=(SPLIT_6, SPLIT_6))
+    assert max_diff(got, want) <= tol
+    assert max_diff(got, exact) * f64_gain <= max_diff(want, exact)
+    pv3 = online_softmax_model(q, k, v, 0.125, products=(SPLIT_6, SPLIT_3))
+    assert max_diff(pv3, want) > pv3_factor * tol
+    tf32 = online_softmax_model(q, k, v, 0.125, products=(tf32_product, tf32_product))
+    assert max_diff(tf32, want) > tf32_factor * tol
 
 
 @pytest.mark.parametrize("kernel", list(KERNEL_MODELS))
@@ -156,7 +233,7 @@ def test_model_ragged_n_matches_pallas_kernel(kernel, dtype):
     model against the JAX package's ``_flash_bhnd`` in interpret mode (its
     queries padded to 1024 rows, which it tiles by 256; rows are
     independent) and against the plain twin, to k5_tolerance."""
-    tile, exp2 = KERNEL_MODELS[kernel]
+    tile, exp2, products = KERNEL_MODELS[kernel]
     q, k, v = qkv(2, 1000, 64, seed=12)
     q_pad = np.concatenate([q, np.zeros((2, 24, 64), np.float32)], axis=1)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
@@ -164,7 +241,7 @@ def test_model_ragged_n_matches_pallas_kernel(kernel, dtype):
                        interpret=True)
     want = torch.tensor(np.asarray(want.astype(jnp.float32))[:, :1000]).to(tdt)
     tq, tk, tv = (torch.tensor(a).to(tdt) for a in (q, k, v))
-    got = online_softmax_model(tq, tk, tv, 0.125, tile=tile, exp2=exp2)
+    got = online_softmax_model(tq, tk, tv, 0.125, tile=tile, exp2=exp2, products=products)
     plain = fa.flash_bhnd_torch(tq, tk, tv, 0.125)
     assert max_diff(got, want) <= k5_tolerance(want)
     assert max_diff(got, plain) <= k5_tolerance(plain)
@@ -177,14 +254,14 @@ def test_model_ragged_n_matches_pallas_kernel(kernel, dtype):
     (torch.bfloat16, 40, 1000, 64, 0.125, "wgmma"),     # ragged n
     (torch.bfloat16, 1, 1, 64, 0.125, "wgmma"),         # one token
     (torch.bfloat16, 65535, 1024, 64, 0.125, "wgmma"),
-    (torch.float32, 16, 1024, 64, 0.125, "cuda_core"),  # f32 weights and the checks
-    (torch.float32, 16, 1024, 64, -0.125, "cuda_core"),
+    (torch.float32, 16, 1024, 64, 0.125, "split_bf16"),  # f32 weights and the checks
+    (torch.float32, 16, 1024, 64, -0.125, "split_bf16"),
     (torch.bfloat16, 8, 1024, 40, 40**-0.5, ValueError),  # Zero123's d = 40
     (torch.bfloat16, 8, 1024, 80, 80**-0.5, ValueError),  # Zero123's d = 80
     (torch.float32, 8, 1024, 40, 40**-0.5, ValueError),
     (torch.bfloat16, 65536, 1024, 64, 0.125, "wgmma"),   # a 1-D persistent grid: no bh limit
-    (torch.float32, 65535, 1024, 64, 0.125, "cuda_core"),  # the f32 grid's y extent
-    (torch.float32, 65536, 1024, 64, 0.125, ValueError),
+    (torch.float32, 65535, 1024, 64, 0.125, "split_bf16"),  # 1-D persistent grids:
+    (torch.float32, 65536, 1024, 64, 0.125, "split_bf16"),  # no bh limit in f32 either
     (torch.bfloat16, 16, 1024, 64, -0.125, ValueError),
     (torch.bfloat16, 16, 1024, 64, 0.0, ValueError),
     (torch.float16, 16, 1024, 64, 0.125, ValueError),
@@ -192,9 +269,9 @@ def test_model_ragged_n_matches_pallas_kernel(kernel, dtype):
         "f32_negative_scale", "bf16_d40", "bf16_d80", "f32_d40", "bh_over", "f32_max_bh",
         "f32_bh_over", "bf16_negative_scale", "bf16_zero_scale", "f16"])
 def test_kernel_picked_by_type(dtype, bh, n, d, scale, want):
-    """bf16 always goes to the wgmma kernel and f32 to the CUDA-core kernel;
-    a shape the picked kernel does not take raises (never a bf16 call on
-    the CUDA-core kernel)."""
+    """bf16 always goes to the wgmma kernel and f32 to the split-bf16
+    kernel; a shape the picked kernel does not take raises (never a bf16
+    call on the f32 kernel)."""
     if want is ValueError:
         with pytest.raises(ValueError):
             fa.k5_kernel(dtype, bh, n, d, scale)

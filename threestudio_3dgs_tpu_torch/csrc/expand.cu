@@ -74,9 +74,8 @@ __device__ __forceinline__ bool tile_reachable(float x0, float y0, float ts, flo
 }
 
 // The last i in [lo, hi) with a[i] <= p, or lo when there is none: the
-// slot that owns pair p in monotone exclusive offsets.  K4 searches its
-// staged offsets with it (and device memory for an oversized span), K6
-// the whole offsets array.
+// slot that owns pair p in monotone exclusive offsets.  K4 and K6 search
+// their staged offsets with it (and device memory for an oversized span).
 template <typename T, typename I, typename V>
 __device__ __forceinline__ I last_at_most(const T* a, I lo, I hi, V p) {
   while (hi - lo > 1) {
@@ -93,15 +92,16 @@ __device__ __forceinline__ I last_at_most(const T* a, I lo, I hi, V p) {
 // The same search by a whole warp, 32 ways a round: every lane loads one
 // candidate and the ballot keeps the last interval whose first offset is
 // <= p.  All lanes return the result.
-__device__ __forceinline__ long long warp_last_at_most(const long long* __restrict__ a,
-                                                       long long n, long long p) {
+template <typename T>
+__device__ __forceinline__ long long warp_last_at_most(const T* __restrict__ a, long long n,
+                                                       long long p) {
   const int lane = threadIdx.x & 31;
   long long lo = 0;
   long long hi = n;  // the answer lies in [lo, hi); a[lo] <= p or lo == 0
   while (hi - lo > 1) {
     const long long step = (hi - lo + 31) / 32;
     const long long idx = lo + lane * step;
-    const bool le = lane == 0 || (idx < hi && __ldg(a + idx) <= p);
+    const bool le = lane == 0 || (idx < hi && (long long)__ldg(a + idx) <= p);
     const unsigned votes = __ballot_sync(kFull, le);
     lo += (31 - __clz(votes)) * step;
     hi = min(hi, lo + step);
@@ -216,32 +216,101 @@ __global__ void __launch_bounds__(kExpandThreads) expand_kernel(
 // for every pair position p < max_pairs, the last i with offsets[i] <= p
 // (0 when there is none, N == 0 included), for monotone offsets.
 //
-// Design.  One thread per pair position binary-searches the offsets
-// (last_at_most, K4's search).  The TPU kernel counts offsets <= p inside
-// a 768-entry window per 512-pair program on its vector unit; a search
-// has no window, so it is right for every monotone input, runs of empty
-// Gaussians of any length included.
+// Bound on the H100: bytes (the offsets read once, 4 B per output).  A
+// search of all N offsets per position is ceil(log2(N + 1)) dependent
+// loads (20 at a million), so the design resolves positions against a
+// window of the offsets in shared memory instead.
 //
-// Bound on the H100: bytes (the offsets read once, 4 B per output); the
-// search's ~log2(N) dependent loads per thread hit the L2 cache.
-__global__ void expand_slots_kernel(const int* __restrict__ offsets, int* __restrict__ slot_out,
-                                    long long n, long long max_pairs) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= max_pairs) return;
-  slot_out[p] = (int)last_at_most(offsets, 0LL, n, p);
+// Design: the block-range search of K4.  Block b owns positions
+// [2048 b, 2048 (b + 1)).  Two warps find the block's first and last slot
+// with the 32-way search, and the block stages the offsets between them
+// (about 1,400 at the bench scene's 1.49 pairs a Gaussian; at most
+// kSlotWindow) with coalesced loads.  Then each thread takes staged slots
+// and writes slot j into the block's positions [offsets[j], offsets[j + 1])
+// in shared memory (the expand pattern: no search; an empty slot, whose
+// offsets are equal, writes nothing, so a run of them leaves each
+// position to the last), and the block stores its 2048 slots, eight
+// consecutive ones a thread as two 16-byte stores.  A window wider than
+// the stage (a long run of empty Gaussians inside the block's range) is
+// resolved by a binary search per position in device memory between the
+// same two slots instead: the same answer, as for any monotone input.
+constexpr int kSlotThreads = 256;
+constexpr int kSlotsPerThread = 8;
+constexpr int kSlotsPerBlock = kSlotThreads * kSlotsPerThread;
+constexpr int kSlotWindow = 4096;  // staged offsets, 16 KB
+
+__global__ void __launch_bounds__(kSlotThreads) expand_slots_kernel(
+    const int* __restrict__ offsets, int* __restrict__ slot_out, long long n,
+    long long max_pairs) {
+  __shared__ long long s_bounds[2];
+  __shared__ int s_win[kSlotWindow];       // offsets[s0 + j]
+  __shared__ int s_out[kSlotsPerBlock];    // the slot of position p0 + q
+
+  const long long p0 = (long long)blockIdx.x * kSlotsPerBlock;
+  const long long p_last = min(p0 + kSlotsPerBlock, max_pairs) - 1;
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const long long s = warp_last_at_most(offsets, n, warp == 0 ? p0 : p_last);
+    if ((threadIdx.x & 31) == 0) s_bounds[warp] = s;
+  }
+  __syncthreads();
+  const long long s0 = s_bounds[0];
+  const long long span = n > 0 ? s_bounds[1] - s0 + 1 : 0;  // the slots of the block
+  const bool staged = span <= kSlotWindow;
+  const int count = (int)(p_last - p0 + 1);  // positions of the block
+  if (staged) {
+    for (int j = threadIdx.x; j < (int)span; j += kSlotThreads) s_win[j] = __ldg(offsets + s0 + j);
+    if (span == 0) {  // no offsets: every position takes slot 0
+      for (int q = threadIdx.x; q < count; q += kSlotThreads) s_out[q] = 0;
+    }
+    __syncthreads();
+    // slot s0 + j owns [offsets[j], offsets[j + 1]) clipped to the block;
+    // s0 also owns the positions before its offset (none before any offset)
+    for (int j = threadIdx.x; j < (int)span; j += kSlotThreads) {
+      const int lo = j == 0 ? 0 : (int)(s_win[j] - p0);
+      const int hi = j + 1 < (int)span ? (int)(s_win[j + 1] - p0) : count;
+      for (int q = lo; q < hi; ++q) s_out[q] = (int)(s0 + j);
+    }
+    __syncthreads();
+  }
+
+  const int q0 = threadIdx.x * kSlotsPerThread;
+  if (q0 >= count) return;
+  int out[kSlotsPerThread];
+  long long j = 0;  // the previous position's slot, relative to s0 (device-memory search)
+#pragma unroll
+  for (int r = 0; r < kSlotsPerThread; ++r) {
+    if (staged) {
+      out[r] = q0 + r < count ? s_out[q0 + r] : 0;
+    } else {
+      j = last_at_most(offsets + s0, j, span, p0 + q0 + r);
+      out[r] = (int)(s0 + j);
+    }
+  }
+  if (q0 + kSlotsPerThread <= count) {
+    int4* dst = reinterpret_cast<int4*>(slot_out + p0 + q0);
+    dst[0] = make_int4(out[0], out[1], out[2], out[3]);
+    dst[1] = make_int4(out[4], out[5], out[6], out[7]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < kSlotsPerThread; ++r) {
+      if (q0 + r < count) slot_out[p0 + q0 + r] = out[r];
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// offsets (N,) i32, monotone exclusive prefix; slot (max_pairs,) i32.
+// offsets (N,) i32, monotone exclusive prefix; slot (max_pairs,) i32,
+// 16-byte aligned.
 int expand_slots(const void* offsets, void* slot, long long n, long long max_pairs,
                  void* stream) {
   if (max_pairs == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (max_pairs + threads - 1) / threads;
-  expand_slots_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (((uintptr_t)slot & 15u) != 0u) return (int)cudaErrorInvalidValue;
+  const long long blocks = (max_pairs + kSlotsPerBlock - 1) / kSlotsPerBlock;
+  expand_slots_kernel<<<(unsigned)blocks, kSlotThreads, 0, (cudaStream_t)stream>>>(
       (const int*)offsets, (int*)slot, n, max_pairs);
   return (int)cudaGetLastError();
 }

@@ -8,8 +8,9 @@ the SDS denoiser runs under ``torch.no_grad`` and is never differentiated.
 ``flash_bhnd`` takes the plain twin for CPU tensors and launches the kernel
 for CUDA tensors; it refuses inputs that require grad on either device.  On
 the card ``k5_kernel`` picks K5's kernel by type alone: bf16 (the UNet's
-type) runs on ``wgmma`` with TMA-fed K/V tiles, f32 on the CUDA cores; a
-shape that the picked kernel does not take raises.
+type) runs on ``wgmma`` with TMA-fed K/V tiles; f32 splits q, k and v into
+three bf16 planes each and runs both products on ``wgmma`` as six plane
+products; a shape that the picked kernel does not take raises.
 
 ``attention`` keeps the JAX package's routing rule, with ``device.type ==
 "cuda"`` in place of ``default_backend() == "tpu"`` (the JAX rule's
@@ -27,7 +28,6 @@ from . import native
 
 BQ = 256  # the TPU kernel's query rows per program; the routing rule keeps it
 HEAD_DIM = 64  # the only head dimension K5 is built for (320/5, 640/10)
-MAX_BH_F32 = 65535  # (batch * head) rows: the f32 kernel's grid y extent
 MIN_SEQ = 1024
 
 
@@ -57,19 +57,17 @@ def shape_tag(bh, n, d) -> str:
 
 def k5_kernel(dtype, bh, n, d, scale) -> str:
     """Which of K5's kernels takes (bh, n, d) inputs of ``dtype`` on the
-    card: ``"wgmma"`` for bf16, ``"cuda_core"`` for f32.  Raises ValueError
+    card: ``"wgmma"`` for bf16, ``"split_bf16"`` for f32.  Raises ValueError
     for what the picked kernel does not take; a bf16 call is never handed to
-    the CUDA-core kernel."""
+    the f32 kernel."""
     if dtype == torch.bfloat16:
         kernel = "wgmma"
     elif dtype == torch.float32:
-        kernel = "cuda_core"
+        kernel = "split_bf16"
     else:
         raise ValueError(f"K5 takes bf16 or f32 inputs, got {dtype}")
     if d != HEAD_DIM:
         raise ValueError(f"K5 is built for head dim {HEAD_DIM}, got {d}")
-    if kernel == "cuda_core" and bh > MAX_BH_F32:
-        raise ValueError(f"K5's f32 kernel takes at most {MAX_BH_F32} (batch * head) rows, got {bh}")
     if kernel == "wgmma" and not scale > 0:
         # the wgmma kernel takes the row max of the unscaled scores
         raise ValueError(f"K5's bf16 kernel takes scale > 0, got {scale}")
@@ -77,7 +75,8 @@ def k5_kernel(dtype, bh, n, d, scale) -> str:
 
 
 def flash_bhnd_cuda(q, k, v, scale):
-    """K5 on the card: the kernel ``k5_kernel`` picks, one launch."""
+    """K5 on the card: the kernel ``k5_kernel`` picks, one launch (the f32
+    kernel's split pass included, into a scratch of 9 bh n d bf16)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         native.check_cuda_tensor(t, name, q.dtype, 3)
     if k.shape != q.shape or v.shape != q.shape:
@@ -85,8 +84,11 @@ def flash_bhnd_cuda(q, k, v, scale):
     bh, n, d = q.shape
     kernel = k5_kernel(q.dtype, bh, n, d, scale)
     out = torch.empty_like(q)
+    scratch = None if kernel == "wgmma" else torch.empty(
+        9 * q.numel(), dtype=torch.bfloat16, device=q.device)
     native.launch(
         "flash_attention_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         bh, n, d, float(scale), int(kernel == "wgmma"), native.stream_handle(q.device),
         shape=shape_tag(bh, n, d),
     )

@@ -53,7 +53,7 @@ SIGNATURES = {
     "segsum_monotone": ("segsum", [_P, _P, _P, _P, _LL, _I, _LL, _P]),
     "expand_bin": ("expand", [_P] * 8 + [_LL, _LL, _I, _I, _I, _P]),
     "expand_slots": ("expand", [_P, _P, _LL, _LL, _P]),
-    "flash_attention_forward": ("flash_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+    "flash_attention_forward": ("flash_attention", [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
 }
 
 # launches per kernel entry point; reset with reset_launches()

@@ -171,8 +171,9 @@ def expand_slots_torch(offsets: torch.Tensor, max_pairs: int) -> torch.Tensor:
 
 
 def expand_slots_cuda(offsets: torch.Tensor, max_pairs: int) -> torch.Tensor:
-    """K6 on the card: one thread per pair position binary-searches the
-    offsets ((N,) int32, monotone) for the last i with offsets[i] <= p."""
+    """K6 on the card: each block finds the slots of its 2048 positions
+    in the offsets ((N,) int32, monotone), stages them and resolves every
+    position p to the last i with offsets[i] <= p."""
     native.check_cuda_tensor(offsets, "offsets", torch.int32, 1)
     slot = torch.empty(max_pairs, dtype=torch.int32, device=offsets.device)
     native.launch("expand_slots", offsets.data_ptr(), slot.data_ptr(), offsets.shape[0],

@@ -1,4 +1,4 @@
-"""K1-K5 (``csrc/blend.cu``, ``csrc/segsum.cu``, ``csrc/expand.cu``,
+"""K1-K6 (``csrc/blend.cu``, ``csrc/segsum.cu``, ``csrc/expand.cu``,
 ``csrc/flash_attention.cu``) of one tree of the port, timed alone on the
 card, for comparing two trees in turns on one card:
 
@@ -7,26 +7,33 @@ card, for comparing two trees in turns on one card:
 ``TREE`` is the root of the tree whose package (and so whose kernels) is
 timed; the script itself may come from another tree, and calls only
 ``PairPlan.expand``, ``segsum_inputs``, ``profiling.bench_scene``,
-``profiling.k5_inputs`` and the five ``*_cuda`` wrappers, which the trees
-before and after the K3 / K4 redesign share with the same signatures.  The inputs are the
-same in every tree: bench.py's scene (1M Gaussians, 512^2, tile 32, seed 0)
+``profiling.k5_inputs`` and the six ``*_cuda`` wrappers, which the trees
+it compares share with the same signatures.  The inputs are the same in
+every tree: bench.py's scene (1M Gaussians, 512^2, tile 32, seed 0)
 and one view of ``gaussian_splatting.yaml``'s initial field (the config's
 seed, ``train_batch(0)``'s first camera, tile 32), each with a standard
 normal cotangent of the blend output (seeded); K3's rows are the pair
 gradients K2 makes from it, as a backward sorts them.
 
-Then K5 at the UNet's two bf16 self-attention shapes, (40, 4096, 64) and
-(80, 1024, 64), beside ``scaled_dot_product_attention``.
+K6 (``expand_slots_cuda``) at the bench scene's depth-ordered pair
+offsets (max_pairs the pair total rounded up to 512), beside
+``torch.searchsorted``.  Then K5 at the UNet's two bf16 self-attention
+shapes, (40, 4096, 64) and (80, 1024, 64), and at MVDream's two f32 ones,
+(10, 4096, 64) and (20, 1024, 64), beside ``scaled_dot_product_attention``;
+for f32 also, over 8 seeds of keys in rising norm (the f32 check's
+hardest inputs; the limit is 2e-5), the largest |K5 - plain twin|,
+|K5 - float64| and |plain twin - float64|, with TF32 off.
 
 For each input and kernel it prints two clocks of one call, each over
 ``--iters`` back-to-back calls: ``ms``, the wrapper time (CUDA events,
 host work included), and ``device_ms``, the device time (one CUDA graph
 of the calls replayed between CUDA events: every kernel the call
-launches, no host work between them).  For K3 and K5 the same two clocks
-of the library call that computes their function
-(``torch.segment_reduce``, ``scaled_dot_product_attention``) as
-``library_ms`` and ``library_device_ms``.  Prints the card's name and
-power limit, then one JSON line.  Needs a CUDA device.
+launches, no host work between them).  For K3, K5 and K6 the same two
+clocks of the library call that computes their function
+(``torch.segment_reduce``, ``scaled_dot_product_attention``,
+``torch.searchsorted``) as ``library_ms`` and ``library_device_ms``.
+Prints the card's name and power limit, then one JSON line.  Needs a CUDA
+device.
 
 ``chip_smoke.py`` takes its clocks from here (``wrapper_ms``,
 ``graph_ms``).
@@ -159,6 +166,22 @@ def kernel_calls(inp):
     }
 
 
+def rising_errors(fa, bh: int, n: int, seed: int) -> Dict[str, float]:
+    """Largest |K5 - plain twin|, |K5 - float64| and |plain twin - float64|
+    at f32 inputs with keys in rising norm (``k5_inputs(..., rising=True)``);
+    float64 is the plain twin's function evaluated in float64, here rather
+    than by ``profiling.k5_float64``, which an older timed tree lacks."""
+    from threestudio_3dgs_tpu_torch.utils.profiling import k5_inputs
+
+    q, k, v = k5_inputs(bh, n, torch.float32, seed=seed, rising=True)
+    got, plain = fa.flash_bhnd_cuda(q, k, v, 0.125).double(), fa.flash_bhnd_torch(q, k, v, 0.125)
+    s = torch.matmul(q.double(), k.double().transpose(1, 2)) * 0.125
+    exact = torch.softmax(s, dim=-1) @ v.double()
+    return {"kernel_plain": float((got - plain).abs().max()),
+            "kernel_f64": float((got - exact).abs().max()),
+            "plain_f64": float((plain - exact).abs().max())}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--iters", type=int, default=50)
@@ -166,6 +189,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("kernel timing needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from threestudio_3dgs_tpu_torch.ops.rasterizer import expand
     from threestudio_3dgs_tpu_torch.utils.profiling import bench_scene
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -182,6 +207,15 @@ def main(argv=None):
                 row[kernel] = time_call(call, args.iters)
                 if library is not None:
                     row[kernel].update(time_call(library, args.iters, "library_"))
+            if name == "bench":
+                plan = inp["plan"]
+                offsets, max_pairs = plan.offsets.int().contiguous(), -(-plan.n_pairs // 512) * 512
+                positions = torch.arange(max_pairs, dtype=torch.int32, device="cuda")
+                row["expand_slots"] = time_call(
+                    lambda: expand.expand_slots_cuda(offsets, max_pairs), args.iters)
+                row["expand_slots"].update(time_call(
+                    lambda: torch.searchsorted(offsets, positions, right=True) - 1, args.iters,
+                    "library_"))
         result["inputs"][name] = row
         del inp
         torch.cuda.empty_cache()
@@ -191,13 +225,17 @@ def main(argv=None):
     from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
     from threestudio_3dgs_tpu_torch.utils.profiling import k5_inputs
 
-    for bh, n in ((40, 4096), (80, 1024)):
-        q, k, v = k5_inputs(bh, n, torch.bfloat16, seed=20)
+    for bh, n, dtype in ((40, 4096, torch.bfloat16), (80, 1024, torch.bfloat16),
+                         (10, 4096, torch.float32), (20, 1024, torch.float32)):
+        q, k, v = k5_inputs(bh, n, dtype, seed=20)
         with torch.no_grad():
             row = time_call(lambda: fa.flash_bhnd_cuda(q, k, v, 0.125), args.iters)
             row.update(time_call(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=0.125), args.iters, "library_"))
-        result["inputs"][f"k5_{bh}x{n}x64"] = {"flash_attention_forward": row}
+            if dtype == torch.float32:
+                row["rising_errors_by_seed"] = [rising_errors(fa, bh, n, seed) for seed in range(8)]
+        tag = "" if dtype == torch.bfloat16 else ":f32"
+        result["inputs"][f"k5_{bh}x{n}x64{tag}"] = {"flash_attention_forward": row}
         del q, k, v
     print(json.dumps(result), flush=True)
     return result
