@@ -90,11 +90,36 @@ Phases, each of which fails the run with a non-zero exit:
      none) and the background MLP moved; then K1-K4 are held and timed at
      one 256^2 view of the trained MVDream field, and K5 timed in f32 at
      MVDream's shapes;
-  9. print the per-kernel JSON line (launches from the training runs, K6's
-     from its checks; times at the main path's shapes, K6's at the bench
-     scene; K1-K4 rows at the trained 512^2 view and at the MVDream view;
-     one K5 row per shape and type; ``ms`` and ``library_ms`` wrapper
-     times, ``device_ms`` and ``library_device_ms`` device times), then
+  9. image-to-3D: hold K5 at Stable Zero123's head dim, d = 40, against its
+     plain version ((64, 1024, 40) bf16 on standard normal and on rising
+     keys, a ragged (64, 1000, 40) bf16, (16, 1024, 40) f32 and the same at
+     rising keys against the float64 value); hold the Zero123 guidance on a
+     tiny random ldm ``.ckpt`` (320 channels and 8 heads at level 0, so its
+     1024-token self-attention runs K5 at d = 40) on the card against its
+     CPU run; then ``zero123_guidance``: write a seeded random
+     ``stable_zero123``-format ``.ckpt`` (the published ZERO123_UNET, the
+     SD VAE encoder, cc_projection 772 -> 768, f16) and a random ViT-L/14
+     ``image_encoder/`` beside it, ``prepare_embeddings`` on a reference
+     frame, 10 guidance calls with backward on (4, 256, 256, 3) renders
+     (bf16, CFG batch 8): K5 exactly 5 times a call at (64, 1024, 40) and
+     nowhere else, finite loss, grad_norm > 0; then ``train_zero123``: 10
+     steps of gaussian_splatting_zero123.yaml through ``launch.main`` on a
+     synthetic 512^2 RGBA reference PNG, the ref view at 128^2, 256^2 and
+     512^2 (milestones 3 and 6), the random views at 4 x 256^2: finite
+     losses, the guidance's grad_norm > 0, K1-K4 launched and K5 never (the
+     analytic prior, as in the JAX package); then warm starts from the
+     run's ``.ckpt.npz`` and its PLY, each loaded field equal to the saved
+     one, and 2 steps from each, and ``--export --resume`` its checkpoint
+     (an OBJ with faces); time K5 at (64, 1024, 40) bf16;
+ 10. print the per-kernel JSON line (launches from the training runs, K6's
+     from its checks, K5 at d = 40 from ``zero123_guidance``; times at the
+     main path's shapes, K6's at the bench scene; K1-K4 rows at the trained
+     512^2 view, at the MVDream view and at the zero123 YAML's 128^2 ref
+     view (launches from ``train_zero123``); one K5 row per shape and type;
+     ``ms`` and ``library_ms`` wrapper times, ``device_ms`` and
+     ``library_device_ms`` device times; K5's bound the largest of its
+     bytes, its products and its exponentials on the SFU at the card's
+     highest SM clock, named by ``bound_term``), then
      ``{"ok": true, ...}`` last.
 
 Nothing is caught and passed over: the first failure ends the run.
@@ -130,12 +155,21 @@ LIT_STEPS = 10
 AMBIENT_ONLY_STEPS = 5
 # K5's shapes on the main path (SD 2.1-base at 512^2, CFG batch 8: 5 heads of
 # 4096 tokens, 10 of 1024) and its launches at each per UNet call
-K5_SHAPES = ((40, 4096), (80, 1024))
+K5_SHAPES = ((40, 4096, 64), (80, 1024, 64))
 K5_PER_SHAPE_PER_UNET_CALL = 5
 # MVDream at 256^2, CFG batch 8 = 2 halves x 4 views, the views of a half
 # folded into one sequence: 2 x 5 heads of 4 x 32^2 tokens and 2 x 10 of
 # 4 x 16^2, in f32 (K5's split-bf16 kernel)
-K5_MV_SHAPES = ((10, 4096), (20, 1024))
+K5_MV_SHAPES = ((10, 4096, 64), (20, 1024, 64))
+# Stable Zero123 at its 256^2 conditioning size, CFG batch 8 = 2 x 4 views:
+# 8 heads of 32^2 tokens at d = 40 (320 / 8) at level 0; levels 1-3 have
+# 256, 64 and 16 tokens and take the einsum
+K5_Z123_SHAPES = ((64, 1024, 40),)
+ZERO123_CONFIG = os.path.join(CONFIG_DIR, "gaussian_splatting_zero123.yaml")
+ZERO123_DIR = os.path.join(RUN_DIR, "zero123-random")
+ZERO123_CALLS = 10
+ZERO123_STEPS = 10
+WARM_STEPS = 2
 # the synthetic tokenizer's merges come from these lines
 TOKENIZER_CORPUS = (
     "a hamburger, a DSLR photo of a delicious hamburger on a wooden plate. a zoomed out "
@@ -157,6 +191,11 @@ TOKENIZER_CORPUS = (
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
+# the SFU's exponentials: 16 a clock per SM (CUDA C++ Programming Guide,
+# arithmetic instructions, compute capability 9.0) on the card's 132 SMs,
+# at its highest SM clock, which main() reads from nvidia-smi
+SFU_PER_CLOCK = 16 * 132
+SM_MAX_HZ = None
 
 # floating-point operations per evaluated (pixel, pair), counted from the
 # kernels' bodies in csrc/blend.cu for C blended channels and F = 6 + C
@@ -196,17 +235,22 @@ KERNELS = {
         replaces="threestudio_3dgs_tpu/ops/rasterizer/expand_pallas.py:379",
     ),
 }
-# K5 checks (bh, n, dtype name, keys in rising norm): the UNet's two
+# K5 checks (bh, n, d, dtype name, keys in rising norm): the UNet's two
 # self-attention shapes in bf16 (the wgmma kernel), the first again with a
 # running max that grows in every key tile, a ragged n (a partial last key
 # and query tile), and in f32 (the split-bf16 kernel) one shape, MVDream's
 # two and its level 0 with keys in rising norm (logits of about +-30, where
 # the plain twin is itself up to 2.5e-5 from float64 on the card); limits
-# from profiling.k5_tolerance
-K5_CHECKS = ((40, 4096, "bfloat16", False), (80, 1024, "bfloat16", False),
-             (40, 4096, "bfloat16", True), (40, 1000, "bfloat16", False),
-             (16, 1024, "float32", False), (10, 4096, "float32", False),
-             (20, 1024, "float32", False), (10, 4096, "float32", True))
+# from profiling.k5_tolerance.  K5_Z123_CHECKS: the same at Stable
+# Zero123's d = 40 (columns 40..63 of K5's boxes zero-filled), run with the
+# image-to-3D phase
+K5_CHECKS = ((40, 4096, 64, "bfloat16", False), (80, 1024, 64, "bfloat16", False),
+             (40, 4096, 64, "bfloat16", True), (40, 1000, 64, "bfloat16", False),
+             (16, 1024, 64, "float32", False), (10, 4096, 64, "float32", False),
+             (20, 1024, 64, "float32", False), (10, 4096, 64, "float32", True))
+K5_Z123_CHECKS = ((64, 1024, 40, "bfloat16", False), (64, 1024, 40, "bfloat16", True),
+                  (64, 1000, 40, "bfloat16", False), (16, 1024, 40, "float32", False),
+                  (16, 1024, 40, "float32", True))
 
 
 def log(msg):
@@ -758,7 +802,7 @@ def train_lit(torch, native, name, config, extra, k5_shapes=()):
     ``k5_shapes`` and nowhere else, and the background MLP moved.  Returns
     the trainer, the launches and K5's launches by shape."""
     from threestudio_3dgs_tpu_torch import launch
-    from threestudio_3dgs_tpu_torch.ops.flash_attention import HEAD_DIM, shape_tag
+    from threestudio_3dgs_tpu_torch.ops.flash_attention import shape_tag
     from threestudio_3dgs_tpu_torch.systems.base import flatten_extra
     from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
 
@@ -785,8 +829,7 @@ def train_lit(torch, native, name, config, extra, k5_shapes=()):
     missing = [k for k in RASTER_KERNELS if launches[k] == 0]
     if missing:
         fail(f"{name}: kernels never launched: {missing}")
-    want = {shape_tag(bh, n, HEAD_DIM): K5_PER_SHAPE_PER_UNET_CALL * LIT_STEPS
-            for bh, n in k5_shapes}
+    want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * LIT_STEPS for shape in k5_shapes}
     if shape_launches != want or launches["flash_attention_forward"] != sum(want.values()):
         fail(f"{name}: K5 launched {launches['flash_attention_forward']} times, by shape "
              f"{shape_launches}; want {want}")
@@ -808,43 +851,43 @@ def train_lit(torch, native, name, config, extra, k5_shapes=()):
         f"last loss_total {rows[-1]['train/loss_total']:.6g}, grad_norm "
         f"{rows[-1]['train/grad_norm']:.6g}; background moved by up to "
         f"{max(moved.values()):.3g}; launches {launches}, K5 by shape {shape_launches}")
-    return trainer, launches, {shape: shape_launches[shape_tag(*shape, HEAD_DIM)]
-                               for shape in k5_shapes}
+    return trainer, launches, {shape: shape_launches[shape_tag(*shape)] for shape in k5_shapes}
 
 
-def check_flash(torch):
-    """K5 against its plain version at each K5_CHECKS case.  Returns the
-    absolute error by (bh, n, dtype name) of the checks on standard normal
-    inputs."""
+def check_flash(torch, checks=K5_CHECKS, seed=10):
+    """K5 against its plain version at each case of ``checks`` (scale
+    d^-1/2).  Returns the absolute error by (bh, n, d, dtype name) of the
+    checks on standard normal inputs."""
     from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
     from threestudio_3dgs_tpu_torch.utils.profiling import k5_float64, k5_inputs, k5_tolerance
 
     errs = {}
     with torch.no_grad():
-        for i, (bh, n, dtype, rising) in enumerate(K5_CHECKS):
-            q, k, v = k5_inputs(bh, n, getattr(torch, dtype), seed=10 + i, rising=rising)
-            got = fa.flash_bhnd_cuda(q, k, v, 0.125)
-            want = fa.flash_bhnd_torch(q, k, v, 0.125)
+        for i, (bh, n, d, dtype, rising) in enumerate(checks):
+            q, k, v = k5_inputs(bh, n, getattr(torch, dtype), seed=seed + i, rising=rising, d=d)
+            scale = d**-0.5
+            got = fa.flash_bhnd_cuda(q, k, v, scale)
+            want = fa.flash_bhnd_torch(q, k, v, scale)
             err = float((got.float() - want.float()).abs().max())
             rule = "max |diff|; limit 2^-6 x max|plain|" if dtype == "bfloat16" else "max |diff|"
             if not bool(torch.isfinite(got).all()):
-                fail(f"k5 {bh}x{n}x64 {dtype}: non-finite output")
-            label = f"k5 {bh}x{n}x64 {dtype}" + (" rising max" if rising else "")
+                fail(f"k5 {bh}x{n}x{d} {dtype}: non-finite output")
+            label = f"k5 {bh}x{n}x{d} {dtype}" + (" rising max" if rising else "")
             if rising and dtype == "float32":
                 # the plain twin in f32 is itself up to 2.5e-5 from the
                 # float64 value here: hold K5 to that value, and to no
                 # further from it than the plain twin
-                exact = k5_float64(q, k, v, 0.125)
+                exact = k5_float64(q, k, v, scale)
                 plain_err = float((want.double() - exact).abs().max())
                 err_f64 = float((got.double() - exact).abs().max())
-                log(f"k5 {bh}x{n}x64 f32 rising max: |K5 - plain| {err:.3e}, |K5 - float64| "
+                log(f"k5 {bh}x{n}x{d} f32 rising max: |K5 - plain| {err:.3e}, |K5 - float64| "
                     f"{err_f64:.3e}, |plain - float64| {plain_err:.3e}")
                 report(label, "flash_attention", err_f64, min(k5_tolerance(want), plain_err),
                        "max |diff| from float64; limit min(2e-5, |plain - float64|)")
                 continue
             report(label, "flash_attention", err, k5_tolerance(want), rule)
             if not rising:
-                errs[(bh, n, dtype)] = err
+                errs[(bh, n, d, dtype)] = err
             del q, k, v, got, want
     torch.cuda.empty_cache()
     return errs
@@ -868,15 +911,17 @@ def check_sd_small(torch):
 
 
 def time_flash(torch, shapes, dtype):
-    """K5 at the main path's shapes in ``dtype``: its time, its plain
-    version's, scaled_dot_product_attention's, and its bound: each input
-    read once and the output written once at 3.35 TB/s, or the operations
-    at their peak, whichever is longer.  bf16: 4 bh n^2 d FLOPs on the
-    tensor cores at 989 TFLOP/s.  f32 (f32-accurate attention): the faster
-    of its two routes, 4 bh n^2 d FLOPs on the CUDA cores at 67 TFLOP/s or
-    the split on the tensor cores, 12 bf16 products of 2 bh n^2 d FLOPs
-    each at 989.  The SFU floor (bh n^2 exponentials at 16 a clock per SM,
-    132 SMs, 1.755 GHz) beside it.  Returns the rows by (bh, n)."""
+    """K5 at the main path's (bh, n, d) shapes in ``dtype``: its time, its
+    plain version's, scaled_dot_product_attention's, and its bound, the
+    longest of three: each input read once and the output written once at
+    3.35 TB/s; the products at their peak (bf16: 4 bh n^2 d FLOPs on the
+    tensor cores at 989 TFLOP/s; f32, f32-accurate attention: the faster of
+    its two routes, 4 bh n^2 d FLOPs on the CUDA cores at 67 TFLOP/s or the
+    split on the tensor cores, 12 bf16 products of 2 bh n^2 d FLOPs each at
+    989); the exponentials, bh n^2 on the SFU at 16 a clock per SM, 132
+    SMs, the card's highest SM clock (``clocks.max.sm``).  Each row's
+    ``bound_term`` names the longest of the three ("bytes", "products" or
+    "sfu").  Returns the rows by (bh, n, d)."""
     import torch.nn.functional as F
 
     from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
@@ -885,9 +930,9 @@ def time_flash(torch, shapes, dtype):
 
     rows = {}
     with torch.no_grad():
-        for bh, n in shapes:
-            q, k, v = k5_inputs(bh, n, dtype, seed=20)
-            d = q.shape[-1]
+        for bh, n, d in shapes:
+            q, k, v = k5_inputs(bh, n, dtype, seed=20, d=d)
+            scale = d**-0.5
             b_ms = 4 * q.numel() * q.element_size() / PEAK_BYTES_PER_S * 1e3
             flops = 4 * bh * n * n * d
             if dtype == torch.bfloat16:
@@ -897,24 +942,27 @@ def time_flash(torch, shapes, dtype):
                 split_ms = 12 * (flops / 2) / PEAK_BF16_TC_FLOPS * 1e3
                 o_ms = min(core_ms, split_ms)
                 route = f"; f32 routes: CUDA cores {core_ms:.4f} ms, bf16 split {split_ms:.4f} ms"
-            sfu_ms = bh * n * n / (16 * 132 * 1.755e9) * 1e3
-            call = lambda: fa.flash_bhnd_cuda(q, k, v, 0.125)  # noqa: E731
+            sfu_ms = bh * n * n / (SFU_PER_CLOCK * SM_MAX_HZ) * 1e3
+            terms = {"bytes": b_ms, "products": o_ms, "sfu": sfu_ms}
+            term = max(terms, key=terms.get)
+            call = lambda: fa.flash_bhnd_cuda(q, k, v, scale)  # noqa: E731
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q[None], k[None], v[None], scale=0.125)
-            rows[(bh, n)] = dict(
+                q[None], k[None], v[None], scale=scale)
+            rows[(bh, n, d)] = dict(
                 ms=wrapper_ms(call, 10),
                 device_ms=graph_ms(call, 10),
-                plain_ms=wrapper_ms(lambda: fa.flash_bhnd_torch(q, k, v, 0.125), 3),
+                plain_ms=wrapper_ms(lambda: fa.flash_bhnd_torch(q, k, v, scale), 3),
                 library_ms=wrapper_ms(library, 20),
                 library_device_ms=graph_ms(library, 20),
-                bound=(max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"),
+                bound=(terms[term], "bytes" if term == "bytes" else "operations"),
+                bound_term=term,
             )
-            r = rows[(bh, n)]
+            r = rows[(bh, n, d)]
             log_time(f"flash_attention ({bh}, {n}, {d}) {str(dtype).split('.')[-1]}", r,
                      "scaled_dot_product_attention",
                      f"[by device time {4 * bh * n * n * d / r['device_ms'] / 1e9:.1f} TFLOP/s, "
-                     f"{r['bound'][0] / r['device_ms']:.1%} of the bound; SFU floor "
-                     f"{sfu_ms:.4f} ms{route}]")
+                     f"{r['bound'][0] / r['device_ms']:.1%} of the bound ({term}); bytes {b_ms:.4f} ms, "
+                     f"products {o_ms:.4f} ms, SFU {sfu_ms:.4f} ms{route}]")
             del q, k, v
     torch.cuda.empty_cache()
     return rows
@@ -924,7 +972,7 @@ def train_sd(torch, native):
     """SD_STEPS steps of the YAML with its own stable-diffusion-guidance on
     the random SD 2.1-base directory."""
     from threestudio_3dgs_tpu_torch import launch
-    from threestudio_3dgs_tpu_torch.ops.flash_attention import HEAD_DIM, shape_tag
+    from threestudio_3dgs_tpu_torch.ops.flash_attention import shape_tag
     from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
 
     argv = [
@@ -954,8 +1002,7 @@ def train_sd(torch, native):
     missing = [k for k in RASTER_KERNELS if launches[k] == 0]
     if missing:
         fail(f"kernels never launched by the SD training run: {missing}")
-    want = {shape_tag(bh, n, HEAD_DIM): K5_PER_SHAPE_PER_UNET_CALL * SD_STEPS
-            for bh, n in K5_SHAPES}
+    want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * SD_STEPS for shape in K5_SHAPES}
     if shape_launches != want or launches["flash_attention_forward"] != sum(want.values()):
         fail(f"K5 launched {launches['flash_attention_forward']} times in {SD_STEPS} SD steps, "
              f"by shape {shape_launches}; want {want}")
@@ -976,7 +1023,232 @@ def train_sd(torch, native):
         f"launches {launches}, K5 by shape {shape_launches}")
     del trainer, guidance
     torch.cuda.empty_cache()
-    return launches, {shape: shape_launches[shape_tag(*shape, HEAD_DIM)] for shape in K5_SHAPES}
+    return launches, {shape: shape_launches[shape_tag(*shape)] for shape in K5_SHAPES}
+
+
+def check_zero123_small(torch):
+    """The Zero123 guidance on a tiny random ldm .ckpt (d = 40 at 1024
+    tokens, so its level-0 self-attention runs K5's f32 kernel at d = 40)
+    on the card against the same calls on the CPU, f32 weights, the same
+    draws: the loss and its gradient w.r.t. rgb to 1e-4 relative (cuDNN and
+    the CPU sum in other orders).  Returns K5's launches on the card."""
+    from threestudio_3dgs_tpu_torch.utils.profiling import (
+        TINY_ZERO123_K5_LAUNCHES, tiny_zero123_card_vs_cpu)
+
+    results = tiny_zero123_card_vs_cpu(os.path.join(RUN_DIR, "zero123-tiny"))
+    (loss_c, grad_c, k5_c), (loss_p, grad_p, _) = results["cuda"], results["cpu"]
+    if k5_c != TINY_ZERO123_K5_LAUNCHES or not bool(torch.isfinite(grad_c).all()):
+        fail(f"tiny Zero123 guidance on the card: {k5_c} K5 launches (want "
+             f"{TINY_ZERO123_K5_LAUNCHES}), finite grad {bool(torch.isfinite(grad_c).all())}")
+    report("z123-tiny", "zero123_loss", abs(loss_c - loss_p) / abs(loss_p), 1e-4,
+           "card vs CPU, relative")
+    report("z123-tiny", "zero123_grad_rgb", float((grad_c - grad_p).norm() / grad_p.norm()), 1e-4,
+           "card vs CPU, relative L2")
+    return k5_c
+
+
+def write_zero123_checkpoint(torch):
+    """A seeded random stable_zero123-format .ckpt (the published
+    ZERO123_UNET, the SD VAE encoder, cc_projection 772 -> 768, f16 as the
+    released file stores them) and, beside it, a random ViT-L/14
+    image_encoder/ (f32), so the guidance's real CLIP path runs."""
+    from threestudio_3dgs_tpu_torch.diffusion import SD_VAE, ZERO123_UNET
+    from threestudio_3dgs_tpu_torch.diffusion.convert import write_random_ldm_checkpoint
+    from threestudio_3dgs_tpu_torch.guidance.clip import VIT_L14, write_random_image_encoder
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(ZERO123_DIR, "stable_zero123.ckpt")
+    sizes = {ckpt: write_random_ldm_checkpoint(ckpt, ZERO123_UNET, SD_VAE, clip_dim=768, seed=0,
+                                               device="cuda", dtype=torch.float16)}
+    enc_dir = os.path.join(ZERO123_DIR, "image_encoder")
+    sizes[os.path.join(enc_dir, "pytorch_model.bin")] = write_random_image_encoder(
+        enc_dir, VIT_L14, seed=0, device="cuda")
+    log(f"wrote Stable Zero123 random checkpoint (seed 0; UNet + VAE encoder + cc_projection in "
+        f"f16, ViT-L/14 image encoder in f32) in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{os.path.relpath(p, ROOT)} {n / 2**20:.1f} MiB" for p, n in sizes.items()))
+    return ckpt
+
+
+def reference_rgba(size=512):
+    """A synthetic RGBA reference (uint8): a shaded disc with a stripe on a
+    transparent ground."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1) * 2.0 - 1.0
+    r = np.sqrt(xx**2 + yy**2)
+    inside = r < 0.6
+    shade = np.clip(1.0 - 0.8 * r, 0.0, 1.0)
+    rgb = np.stack([0.9 * shade, 0.5 * shade + 0.3 * (np.abs(yy) < 0.1), 0.2 + 0.0 * shade], -1)
+    alpha = inside.astype(np.float32)[..., None]
+    return (np.concatenate([rgb * alpha, alpha], -1) * 255).round().astype(np.uint8)
+
+
+def zero123_guidance(torch, native, ckpt):
+    """Stable Zero123's guidance at its published widths: prepare_embeddings
+    on the reference frame, then ZERO123_CALLS calls with backward on
+    (4, 256, 256, 3) renders, counters zeroed just before: K5 exactly 5
+    times a call at (64, 1024, 40) and nowhere else, finite losses,
+    grad_norm > 0.  Returns K5's launches by shape."""
+    from threestudio_3dgs_tpu_torch.guidance.temporal_zero123 import StableZero123Guidance
+    from threestudio_3dgs_tpu_torch.ops.flash_attention import shape_tag
+    from threestudio_3dgs_tpu_torch.utils.config import load_config
+
+    cfg = load_config(ZERO123_CONFIG, [f"system.guidance.pretrained_model_name_or_path={ckpt}",
+                                       "data.image_path="])
+    t0 = time.perf_counter()
+    guidance = StableZero123Guidance(dict(cfg.system["guidance"]), device="cuda")
+    frame = reference_rgba(256)[None, ..., :3].astype(np.float32) / 255.0
+    guidance.prepare_embeddings(frame)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if guidance.unet is None or guidance.unet.cfg.dtype != torch.bfloat16:
+        fail("zero123_guidance: the guidance did not build its bf16 denoiser")
+    rng = np.random.default_rng(0)
+    batch = {"elevation": rng.uniform(-10, 80, 4).astype(np.float32),
+             "azimuth": rng.uniform(-180, 180, 4).astype(np.float32),
+             "camera_distances": np.full(4, 3.8, np.float32)}
+    rgb = torch.tensor(rng.uniform(size=(4, 256, 256, 3)).astype(np.float32), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    times = []
+    for i in range(ZERO123_CALLS):
+        x = rgb.clone().requires_grad_(True)
+        t1 = time.perf_counter()
+        out = guidance(x, None, batch, generator=gen, sched=guidance.sched_scalars(100 * i))
+        out["loss_sds"].backward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        loss, gnorm = float(out["loss_sds"].detach()), float(out["grad_norm"])
+        if not (np.isfinite(loss) and gnorm > 0 and bool(torch.isfinite(x.grad).all())):
+            fail(f"zero123_guidance call {i}: loss {loss}, grad_norm {gnorm}")
+    launches = dict(native.LAUNCHES)
+    shape_launches = {tag: c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
+                      if fn == "flash_attention_forward"}
+    want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * ZERO123_CALLS
+            for shape in K5_Z123_SHAPES}
+    if shape_launches != want or launches["flash_attention_forward"] != sum(want.values()):
+        fail(f"zero123_guidance: K5 launched {launches['flash_attention_forward']} times, by "
+             f"shape {shape_launches}; want {want}")
+    n_params = sum(p.numel() for p in guidance.unet.parameters())
+    log(f"zero123_guidance: {ZERO123_CALLS} calls of stable-zero123-guidance (ZERO123_UNET "
+        f"{n_params / 1e9:.3f} B parameters in bf16, CFG batch 8) on 4 x 256^2 renders with "
+        f"backward: load + prepare_embeddings {load_s:.1f} s; per call median "
+        f"{statistics.median(times[1:]):.1f} ms (min {min(times[1:]):.1f}, max "
+        f"{max(times[1:]):.1f}; calls 2-{ZERO123_CALLS}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last loss_sds {loss:.6g}, "
+        f"grad_norm {gnorm:.6g}; launches {launches}, K5 by shape {shape_launches}")
+    del guidance
+    torch.cuda.empty_cache()
+    return {shape: shape_launches[shape_tag(*shape)] for shape in K5_Z123_SHAPES}
+
+
+def assert_same_field(torch, got, want_params, want_alive, label):
+    """The loaded field equals the saved one where ``want_alive`` is set
+    (``want_params`` of those rows, in order), with fresh Adam moments and
+    zeroed statistics."""
+    if not torch.equal(got.alive, want_alive):
+        fail(f"{label}: alive rows {int(got.alive.sum())} differ from the saved field's")
+    for k, v in want_params.items():
+        if not torch.equal(getattr(got.params, k)[want_alive], v):
+            fail(f"{label}: {k} differs from the saved field")
+    stats = [got.adam.count] + [bool(t.any()) for t in list(got.adam.mu.values())
+                                + list(got.adam.nu.values())
+                                + [got.max_radii2d, got.xyz_grad_accum, got.denom]]
+    if any(stats):
+        fail(f"{label}: the warm start kept optimiser moments or statistics")
+
+
+def train_zero123(torch, native):
+    """ZERO123_STEPS steps of gaussian_splatting_zero123.yaml through
+    launch.main on a synthetic 512^2 RGBA reference, counters zeroed just
+    before; then warm starts from its .ckpt.npz and its PLY, and the export
+    of its checkpoint.  Returns the training run's launches and K1-K4's
+    inputs at the 128^2 ref view of the trained field."""
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+    from threestudio_3dgs_tpu_torch.utils.saving import encode_png
+
+    png = os.path.join(RUN_DIR, "reference_rgba.png")
+    os.makedirs(RUN_DIR, exist_ok=True)
+    with open(png, "wb") as f:
+        f.write(encode_png(reference_rgba(512)))
+    common = [f"data.image_path={png}", "data.random_camera.n_test_views=8",
+              f"exp_root_dir={os.path.join(RUN_DIR, 'train_zero123')}"]
+    argv = ["--config", ZERO123_CONFIG, "--train", f"trainer.max_steps={ZERO123_STEPS}",
+            "trainer.val_check_interval=0", "data.resolution_milestones=[3,6]"] + common
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    trainer = launch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = trainer.metrics_log
+    if len(rows) != ZERO123_STEPS:
+        fail(f"train_zero123: expected {ZERO123_STEPS} logged steps, got {len(rows)}")
+    for row in rows:
+        bad = [k for k, v in row.items() if k.startswith("train/") and not np.isfinite(v)]
+        if bad or not row["zero123/grad_norm"] > 0 or row["n_dropped_pairs"] != 0:
+            fail(f"train_zero123 step {row['step']}: non-finite {bad}, grad_norm "
+                 f"{row['zero123/grad_norm']}, {row['n_dropped_pairs']} dropped pairs")
+    missing = [k for k in RASTER_KERNELS if launches[k] == 0]
+    if missing or launches["flash_attention_forward"] != 0:
+        fail(f"train_zero123: kernels never launched {missing}; K5 launched "
+             f"{launches['flash_attention_forward']} times (the analytic prior runs no UNet)")
+    sizes = trainer.data.heights
+    step_ms = [row["step_s"] * 1e3 for row in rows[1:]]
+    rc = trainer.data.random_camera_cfg
+    log(f"train_zero123: {ZERO123_STEPS} steps of gaussian_splatting_zero123.yaml (ref view at "
+        f"{sizes} from steps {trainer.data.resolution_milestones[1:]}, random views "
+        f"{rc.batch_size} x {rc.height}^2, stable-zero123-guidance's analytic prior): {wall:.2f} "
+        f"s wall incl. 8 test renders; median step (steps 2-{ZERO123_STEPS}) "
+        f"{statistics.median(step_ms):.1f} ms (min {min(step_ms):.1f}, max {max(step_ms):.1f}); "
+        f"peak device memory {peak:.2f} GiB; last loss_total {rows[-1]['train/loss_total']:.6g}, "
+        f"loss_ref_rgb {rows[-1]['train/loss_ref_rgb']:.6g}, guidance grad_norm "
+        f"{rows[-1]['zero123/grad_norm']:.6g}; launches {launches}")
+
+    ref_inp = view_inputs(trained_scene(torch, trainer), seed=5)
+    saved = trainer.state.gauss
+    want = {k: v[saved.alive] for k, v in saved.params.as_dict().items()}
+    n_alive = saved.n_alive
+    ckpt = os.path.join(trainer.save_dir, "ckpts", "last.ckpt.npz")
+    ply = os.path.join(trainer.save_dir, "save", "point_cloud.ply")
+    del trainer
+    # the checkpoint keeps the rows where they were; the PLY holds the alive
+    # rows in order, which load into the first ones
+    first = torch.arange(saved.capacity, device=saved.alive.device) < n_alive
+    for label, src, want_alive in (("warm start .ckpt.npz", ckpt, saved.alive),
+                                   ("warm start .ply", ply, first)):
+        t0 = time.perf_counter()
+        warm = launch.main(["--config", ZERO123_CONFIG, "--validate",
+                            f"system.geometry_convert_from={src}"] + common
+                           + ["data.random_camera.n_val_views=1"])
+        assert_same_field(torch, warm.state.gauss, want, want_alive, label)
+        native.reset_launches()
+        warm.max_steps = WARM_STEPS
+        warm.fit()
+        torch.cuda.synchronize()
+        if len(warm.metrics_log) != WARM_STEPS or native.LAUNCHES["blend_forward"] == 0:
+            fail(f"{label}: {len(warm.metrics_log)} steps, launches {dict(native.LAUNCHES)}")
+        log(f"{label}: {os.path.relpath(src, ROOT)} -> {warm.state.gauss.n_alive} alive rows equal "
+            f"to the saved field's, fresh moments and statistics, active SH degree "
+            f"{warm.system.geometry.active_sh_degree}; {WARM_STEPS} steps from it, last "
+            f"loss_total {warm.metrics_log[-1]['train/loss_total']:.6g}; "
+            f"{time.perf_counter() - t0:.2f} s")
+        del warm
+    t0 = time.perf_counter()
+    exporter = launch.main(["--config", ZERO123_CONFIG, "--export", "--resume", ckpt] + common)
+    obj = os.path.join(exporter.save_dir, "save", "export", "model.obj")
+    with open(obj) as f:
+        faces = sum(line.startswith("f ") for line in f)
+    if exporter.step != ZERO123_STEPS or faces < 1:
+        fail(f"zero123 export: step {exporter.step}, {faces} faces in {obj}")
+    log(f"zero123 export --resume {os.path.relpath(ckpt, ROOT)}: {faces} faces, "
+        f"{time.perf_counter() - t0:.2f} s")
+    del exporter
+    torch.cuda.empty_cache()
+    return launches, ref_inp
 
 
 def main():
@@ -995,10 +1267,17 @@ def main():
         capture_output=True, text=True, timeout=60, check=True,
     )
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    global SM_MAX_HZ
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    SM_MAX_HZ = float(clock.stdout.strip().splitlines()[0]) * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, highest SM clock "
+        f"{SM_MAX_HZ / 1e6:.0f} MHz")
 
     t0 = time.perf_counter()
     native.build()
@@ -1085,19 +1364,38 @@ def main():
     del trainer
     torch.cuda.empty_cache()
 
+    # image-to-3D: K5 at d = 40, the Zero123 guidance (tiny, card vs CPU;
+    # then at its published widths), the zero123 YAML and its warm starts
+    k5_errs.update(check_flash(torch, K5_Z123_CHECKS, seed=40))
+    check_zero123_small(torch)
+    z123_k5 = zero123_guidance(torch, native, write_zero123_checkpoint(torch))
+    z123_launches, z123_inp = train_zero123(torch, native)
+    z123_errs = check_kernels(torch, z123_inp, "z123")
+    log("zero123 ref-view timing (128^2, the trained zero123 field; these go in the kernels "
+        "line):")
+    z123_timing = time_kernels(torch, z123_inp, "z123")
+    del z123_inp
+    k5_z123_times = time_flash(torch, K5_Z123_SHAPES, torch.bfloat16)
+
     # (row name, kernel, launches, max abs error, timings): K1-K4 at the
-    # trained view and at the MVDream view, K5 once per main-path shape
+    # trained view, the MVDream view and the zero123 ref view, K5 once per
+    # main-path shape
     raster = [name for name in KERNELS if name not in ("flash_attention_forward", "expand_slots")]
     rows = [(name, name, train_launches[name], max(e[name] for e in errs.values()), timing[name])
             for name in raster]
     rows += [(f"{name}@mvdream256", name, mv_launches[name], mv_errs[name], mv_timing[name])
              for name in raster]
-    rows += [(f"flash_attention_forward@{bh}x{n}x64", "flash_attention_forward",
-              k5_launches[(bh, n)], k5_errs[(bh, n, "bfloat16")], k5_times[(bh, n)])
-             for bh, n in K5_SHAPES]
-    rows += [(f"flash_attention_forward@{bh}x{n}x64:f32", "flash_attention_forward",
-              mv_k5[(bh, n)], k5_errs[(bh, n, "float32")], k5_mv_times[(bh, n)])
-             for bh, n in K5_MV_SHAPES]
+    rows += [(f"{name}@zero123", name, z123_launches[name], z123_errs[name], z123_timing[name])
+             for name in raster]
+    rows += [(f"flash_attention_forward@{bh}x{n}x{d}", "flash_attention_forward",
+              k5_launches[(bh, n, d)], k5_errs[(bh, n, d, "bfloat16")], k5_times[(bh, n, d)])
+             for bh, n, d in K5_SHAPES]
+    rows += [(f"flash_attention_forward@{bh}x{n}x{d}:f32", "flash_attention_forward",
+              mv_k5[(bh, n, d)], k5_errs[(bh, n, d, "float32")], k5_mv_times[(bh, n, d)])
+             for bh, n, d in K5_MV_SHAPES]
+    rows += [(f"flash_attention_forward@{bh}x{n}x{d}", "flash_attention_forward",
+              z123_k5[(bh, n, d)], k5_errs[(bh, n, d, "bfloat16")], k5_z123_times[(bh, n, d)])
+             for bh, n, d in K5_Z123_SHAPES]
     # K6 is on no training path: its launches are its checks', its time the
     # bench scene's
     rows.append(("expand_slots", "expand_slots", k6_launches, k6_err, k6_time))
@@ -1115,6 +1413,7 @@ def main():
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1],
+            "bound_term": t.get("bound_term", t["bound"][1]),
             "library_ms": t["library_ms"],
             "library_device_ms": t["library_device_ms"],
         })

@@ -2,10 +2,11 @@
 flash_attention) against the JAX package on the CPU: K5's plain twin
 against the Pallas kernel ``_flash_bhnd`` in interpret mode, the routing
 rule, the rule that picks K5's kernel on the card, the forward-only guard,
-a CPU model of both K5 kernels' arithmetic (ragged n, a rising max; the f32
-kernel's three-way bf16 split) and the power of the bf16 and f32 limits K5
-is held to.  K5 itself is held against the
-plain twin on the card (tests/test_torch_gpu.py and chip_smoke.py)."""
+a CPU model of both K5 kernels' arithmetic (ragged n, a rising max, a head
+dim zero-filled to 64; the f32 kernel's three-way bf16 split) and the
+power of the bf16 and f32 limits K5 is held to.  K5 itself is held
+against the plain twin on the card (tests/test_torch_gpu.py and
+chip_smoke.py)."""
 
 import math
 
@@ -247,6 +248,36 @@ def test_model_ragged_n_matches_pallas_kernel(kernel, dtype):
     assert max_diff(got, plain) <= k5_tolerance(plain)
 
 
+@pytest.mark.parametrize("kernel", list(KERNEL_MODELS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_zero_padded_head_dim(kernel, dtype):
+    """Stable Zero123's level 0, d = 40, as K5 takes it: q, k and v
+    zero-filled to 64 columns (the fill of its 64-column TMA boxes).  The
+    model on the padded inputs leaves O's columns 40..63 exactly zero and
+    its first 40 equal the model on the unpadded inputs (up to the f32
+    order of the sums, which the zero terms do not change on the card's
+    tensor cores but may on the CPU's), and both hold to k5_tolerance
+    against the JAX package's ``_flash_bhnd`` at d = 40 (interpret mode)
+    and the plain twin."""
+    tile, exp2, products = KERNEL_MODELS[kernel]
+    d, scale = 40, 40**-0.5
+    q, k, v = qkv(2, 1024, d, seed=13)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = _flash_bhnd(*(jnp.asarray(a, jdt) for a in (q, k, v)), scale, interpret=True)
+    want = torch.tensor(np.asarray(want.astype(jnp.float32))).to(tdt)
+    tq, tk, tv = (torch.tensor(a).to(tdt) for a in (q, k, v))
+    pq, pk, pv = (torch.nn.functional.pad(t, (0, 64 - d)) for t in (tq, tk, tv))
+    padded = online_softmax_model(pq, pk, pv, scale, tile=tile, exp2=exp2, products=products)
+    unpadded = online_softmax_model(tq, tk, tv, scale, tile=tile, exp2=exp2, products=products)
+    assert padded.shape == (2, 1024, 64) and not bool(padded[..., d:].any())
+    same = 2e-6 if dtype == "float32" else 2.0**-8 * max_diff(unpadded, 0 * unpadded)
+    assert max_diff(padded[..., :d], unpadded) <= same
+    plain = fa.flash_bhnd_torch(tq, tk, tv, scale)
+    for got in (padded[..., :d], unpadded):
+        assert max_diff(got, want) <= k5_tolerance(want)
+        assert max_diff(got, plain) <= k5_tolerance(plain)
+
+
 @pytest.mark.parametrize("dtype,bh,n,d,scale,want", [
     (torch.bfloat16, 40, 4096, 64, 0.125, "wgmma"),     # level 0 self-attention
     (torch.bfloat16, 80, 1024, 64, 0.125, "wgmma"),     # level 1
@@ -256,9 +287,11 @@ def test_model_ragged_n_matches_pallas_kernel(kernel, dtype):
     (torch.bfloat16, 65535, 1024, 64, 0.125, "wgmma"),
     (torch.float32, 16, 1024, 64, 0.125, "split_bf16"),  # f32 weights and the checks
     (torch.float32, 16, 1024, 64, -0.125, "split_bf16"),
-    (torch.bfloat16, 8, 1024, 40, 40**-0.5, ValueError),  # Zero123's d = 40
-    (torch.bfloat16, 8, 1024, 80, 80**-0.5, ValueError),  # Zero123's d = 80
-    (torch.float32, 8, 1024, 40, 40**-0.5, ValueError),
+    (torch.bfloat16, 64, 1024, 40, 40**-0.5, "wgmma"),   # Stable Zero123's level 0
+    (torch.bfloat16, 8, 1024, 80, 80**-0.5, ValueError),  # Zero123's d = 80: above 64
+    (torch.float32, 16, 1024, 40, 40**-0.5, "split_bf16"),  # half_precision_weights: false
+    (torch.bfloat16, 8, 1024, 8, 8**-0.5, "wgmma"),      # the smallest d
+    (torch.float32, 8, 1024, 12, 12**-0.5, ValueError),  # d % 8 != 0
     (torch.bfloat16, 65536, 1024, 64, 0.125, "wgmma"),   # a 1-D persistent grid: no bh limit
     (torch.float32, 65535, 1024, 64, 0.125, "split_bf16"),  # 1-D persistent grids:
     (torch.float32, 65536, 1024, 64, 0.125, "split_bf16"),  # no bh limit in f32 either
@@ -266,7 +299,8 @@ def test_model_ragged_n_matches_pallas_kernel(kernel, dtype):
     (torch.bfloat16, 16, 1024, 64, 0.0, ValueError),
     (torch.float16, 16, 1024, 64, 0.125, ValueError),
 ], ids=["level0", "level1", "multiview", "ragged", "one_token", "max_bh", "f32",
-        "f32_negative_scale", "bf16_d40", "bf16_d80", "f32_d40", "bh_over", "f32_max_bh",
+        "f32_negative_scale", "bf16_d40", "bf16_d80", "f32_d40", "bf16_d8", "f32_d12", "bh_over",
+        "f32_max_bh",
         "f32_bh_over", "bf16_negative_scale", "bf16_zero_scale", "f16"])
 def test_kernel_picked_by_type(dtype, bh, n, d, scale, want):
     """bf16 always goes to the wgmma kernel and f32 to the split-bf16

@@ -24,7 +24,8 @@ from threestudio_3dgs_tpu_torch.ops.rasterizer import RasterizeConfig, rasterize
 from threestudio_3dgs_tpu_torch.ops.rasterizer import binning, blend, expand, segsum
 from threestudio_3dgs_tpu_torch.ops.rasterizer.preprocess import project_gaussians
 from threestudio_3dgs_tpu_torch.utils.profiling import (
-    RASTER_KERNELS, TINY_SD_K5_LAUNCHES, k5_float64, k5_inputs, k5_tolerance, lookat_c2w,
+    RASTER_KERNELS, TINY_SD_K5_LAUNCHES, TINY_ZERO123_K5_LAUNCHES, k5_float64, k5_inputs,
+    k5_tolerance, lookat_c2w, tiny_zero123_card_vs_cpu,
     tiny_sd_card_vs_cpu)
 
 pytestmark = pytest.mark.gpu
@@ -517,20 +518,51 @@ def test_flash_attention_bh_limit_is_f32_only(cuda):
 
 @torch.no_grad()
 def test_flash_attention_bf16_other_head_dim_raises(cuda):
-    """bf16 with d = 40 (Zero123's level 0): the wrapper raises before any
-    launch, and the C entry point refuses it instead of running another
-    kernel."""
-    q, k, v = (torch.randn((8, 1024, 40), device=cuda, dtype=torch.bfloat16) for _ in range(3))
+    """bf16 with d = 80 (Zero123's level 1, which no shipped config routes
+    to K5): the wrapper raises before any launch, and the C entry point
+    refuses it instead of running another kernel."""
+    q, k, v = (torch.randn((8, 1024, 80), device=cuda, dtype=torch.bfloat16) for _ in range(3))
     native.reset_launches()
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_bhnd(q, k, v, 40**-0.5)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_bhnd(q, k, v, 80**-0.5)
     assert native.LAUNCHES["flash_attention_forward"] == 0
     out = torch.full_like(q, 7.0)
     err = native.library("flash_attention").flash_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 8, 1024, 40, 40**-0.5, 1,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 8, 1024, 80, 80**-0.5, 1,
         native.stream_handle(q.device))
     torch.cuda.synchronize()
     assert err == 1 and bool((out == 7.0).all())  # cudaErrorInvalidValue, nothing written
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 48, 56, 64])
+@torch.no_grad()
+def test_flash_attention_head_dims(cuda, d):
+    """Every head dim K5 takes (d <= 64, d % 8 == 0, zero-filled to 64
+    columns by its TMA boxes): bf16 at (64, 1024, d) (Stable Zero123's
+    level 0 at d = 40) and a ragged (16, 1000, d), and f32 at (16, 1024, d),
+    against the plain twin (k5_tolerance); and through the C entry point
+    into an output with 64 guard elements after it, which a store past the
+    last row's d columns would reach."""
+    lib = native.library("flash_attention")
+    for bh, n, dtype, seed in ((64, 1024, torch.bfloat16, 30), (16, 1000, torch.bfloat16, 31),
+                               (16, 1024, torch.float32, 32)):
+        q, k, v = k5_inputs(bh, n, dtype, seed=seed + d, d=d)
+        scale = d**-0.5
+        got = fa.flash_bhnd_cuda(q, k, v, scale)
+        want = fa.flash_bhnd_torch(q, k, v, scale)
+        guarded = torch.full((q.numel() + 64,), 7.0, dtype=dtype, device=cuda)
+        bf16 = dtype == torch.bfloat16
+        scratch = None if bf16 else torch.empty(9 * q.numel(), dtype=torch.bfloat16, device=cuda)
+        err = lib.flash_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), guarded.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), bh, n, d, scale, int(bf16),
+            native.stream_handle(q.device))
+        torch.cuda.synchronize()
+        assert err == 0
+        assert got.shape == (bh, n, d) and bool(torch.isfinite(got).all())
+        assert float((got.float() - want.float()).abs().max()) <= k5_tolerance(want), (bh, n, dtype)
+        assert torch.equal(guarded[: q.numel()].reshape(bh, n, d), got)
+        assert bool((guarded[q.numel():] == 7.0).all())
 
 
 def test_sd_guidance_on_card_matches_cpu(cuda, tmp_path):
@@ -726,3 +758,48 @@ def test_mvdream_guidance_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     assert k5_c == {("flash_attention_forward", fa.shape_tag(2, 1024, 64)): 5} and k5_p == {}
     assert np.isfinite(loss_c) and loss_c == pytest.approx(loss_p, rel=1e-4)
     assert float((grad_c - grad_p).norm() / grad_p.norm()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The image-to-3D slice: the Zero123 guidance (K5 at d = 40), the zero123
+# YAML and its warm starts
+# ---------------------------------------------------------------------------
+
+
+def test_zero123_guidance_on_card_matches_cpu(cuda, tmp_path):
+    """A tiny random ldm .ckpt (320 channels and 8 heads at level 0, so its
+    32^2 = 1024-token self-attention runs K5's f32 kernel at d = 40 on the
+    card): after prepare_embeddings, the SDS loss and its gradient w.r.t.
+    rgb on the card against the CPU, f32, the same draws (1e-4 relative)."""
+    results = tiny_zero123_card_vs_cpu(str(tmp_path))
+    (loss_c, grad_c, k5_card), (loss_p, grad_p, k5_cpu) = results["cuda"], results["cpu"]
+    assert (k5_card, k5_cpu) == (TINY_ZERO123_K5_LAUNCHES, 0)
+    assert np.isfinite(loss_c) and loss_c == pytest.approx(loss_p, rel=1e-4)
+    assert float((grad_c - grad_p).norm() / grad_p.norm()) <= 1e-4
+
+
+def test_zero123_training_and_warm_start_on_card(cuda, tmp_path):
+    """Two steps of gaussian_splatting_zero123.yaml on the card at 128^2
+    (the synthetic reference; the analytic prior, so no K5), then a warm
+    start from its checkpoint whose field equals the trained one."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.models import gaussian_field as gf
+
+    common = [f"exp_root_dir={tmp_path}", "data.image_path=", "data.height=128",
+              "data.width=128", "data.random_camera.height=128", "data.random_camera.width=128",
+              "data.random_camera.eval_height=128", "data.random_camera.eval_width=128",
+              "data.random_camera.n_test_views=2", "system.geometry.init_num_pts=512",
+              "system.geometry.capacity=2048"]
+    config = os.path.join(CONFIG_DIR, "gaussian_splatting_zero123.yaml")
+    native.reset_launches()
+    trainer = launch.main(["--config", config, "--train", "trainer.max_steps=2",
+                           "trainer.val_check_interval=0"] + common)
+    assert all(np.isfinite(row["train/loss_total"]) for row in trainer.metrics_log)
+    assert all(native.LAUNCHES[k] > 0 for k in RASTER_KERNELS)
+    assert native.LAUNCHES["flash_attention_forward"] == 0
+    ckpt = os.path.join(trainer.save_dir, "ckpts", "last.ckpt.npz")
+    warm = gf.GaussianField(dict(trainer.cfg.system["geometry"], geometry_convert_from=ckpt),
+                            device=cuda).init_state()
+    assert torch.equal(warm.alive, trainer.state.gauss.alive)
+    for k, v in trainer.state.gauss.params.as_dict().items():
+        assert torch.equal(getattr(warm.params, k), v), k

@@ -8,7 +8,9 @@ by the port's ``write_tokenizer``; ``transformers.CLIPTokenizer`` (without
 ftfy, as here and in the JAX package's environment) must give the same ids.
 Tiny random ``CLIPTextModel``s saved by ``transformers`` (``.safetensors``
 and ``.bin``, ``gelu`` and ``quick_gelu``) must encode to the JAX package's
-``_clip_encode_local`` within 1e-5."""
+``_clip_encode_local`` within 1e-5; likewise the image tower
+(``CLIPVisionModelWithProjection``, the Zero123 guidance's) against
+``transformers`` and the JAX package's ``_clip_image_encode_local``."""
 
 import json
 import os
@@ -20,8 +22,10 @@ import torch
 transformers = pytest.importorskip("transformers")
 
 from threestudio_3dgs_tpu.guidance import base as jbase  # noqa: E402
+from threestudio_3dgs_tpu.guidance import temporal_zero123 as jz123  # noqa: E402
 
 from threestudio_3dgs_tpu_torch.guidance import clip as pclip  # noqa: E402
+from threestudio_3dgs_tpu_torch.guidance import temporal_zero123 as pz123  # noqa: E402
 from threestudio_3dgs_tpu_torch.guidance.base import (  # noqa: E402
     VIEW_SUFFIXES, PromptProcessor, PromptUtils, text_embedding)
 from threestudio_3dgs_tpu_torch.guidance.tokenizer import (  # noqa: E402
@@ -194,3 +198,64 @@ def test_write_random_text_encoder_loads(tmp_path):
     ids = torch.tensor([[598, 3, 17, 5, 599] + [599] * 72])
     with torch.no_grad():
         np.testing.assert_allclose(ours(ids).numpy(), theirs(ids)[0].numpy(), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The image tower (the Zero123 guidance's CLIP image embeddings)
+# ---------------------------------------------------------------------------
+
+TINY_VISION = dict(hidden_size=32, intermediate_size=64, projection_dim=24,
+                   num_hidden_layers=2, num_attention_heads=4, image_size=16, patch_size=4)
+
+
+def frames(n=2, size=40, seed=0):
+    return np.random.default_rng(seed).uniform(size=(n, size, size, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("writer", ["port_bin", "transformers_safetensors"])
+def test_clip_image_tower_matches_transformers_and_jax(tmp_path, writer):
+    """The port's image tower on 40^2 frames (resized to 16^2, antialiased,
+    then CLIP-normalised), its weights written by the port (``.bin``) or
+    by ``transformers`` (``model.safetensors``, quick_gelu): against
+    ``CLIPVisionModelWithProjection`` on the JAX package's resized input
+    and against the JAX package's ``_clip_image_encode_local``, both to
+    1e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    directory = str(tmp_path / "image_encoder")
+    if writer == "port_bin":
+        pclip.write_random_image_encoder(directory, pclip.CLIPVisionConfig(**TINY_VISION), seed=4)
+        model = transformers.CLIPVisionModelWithProjection.from_pretrained(directory)
+    else:
+        torch.manual_seed(4)
+        model = transformers.CLIPVisionModelWithProjection(
+            transformers.CLIPVisionConfig(**TINY_VISION, hidden_act="quick_gelu"))
+        model.save_pretrained(directory, safe_serialization=True)
+        assert os.path.exists(os.path.join(directory, "model.safetensors"))
+    x = frames()
+    got = pclip.ImageEncoder(directory)(x)
+    want = jz123._clip_image_encode_local(directory, x)
+    assert got.shape == want.shape == (2, TINY_VISION["projection_dim"])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    resized = np.asarray(jax.image.resize(jnp.asarray(x), (2, 16, 16, 3), "bilinear"))
+    mean, std = np.array(pclip.CLIP_MEAN, np.float32), np.array(pclip.CLIP_STD, np.float32)
+    with torch.no_grad():
+        ref = model(torch.tensor(((resized - mean) / std).transpose(0, 3, 1, 2))).image_embeds
+    np.testing.assert_allclose(got, ref.numpy(), rtol=0, atol=1e-5)
+
+
+def test_clip_image_tower_that_does_not_load_raises(tmp_path):
+    """An image_encoder/ whose weights do not fit its config (a projection
+    width the weights do not have): the JAX package falls back (None), the
+    port raises (a deliberate difference); an absent directory is None in
+    both."""
+    bad = tmp_path / "image_encoder"
+    pclip.write_random_image_encoder(str(bad), pclip.CLIPVisionConfig(**TINY_VISION), seed=4)
+    cfg = json.loads((bad / "config.json").read_text())
+    (bad / "config.json").write_text(json.dumps(dict(cfg, projection_dim=32)))
+    assert jz123._clip_image_encode_local(str(bad), frames()) is None
+    assert jz123._clip_image_encode_local(str(tmp_path / "absent"), frames()) is None
+    with pytest.raises(RuntimeError, match="visual_projection"):
+        pz123._clip_image_embeddings(str(bad), frames(), "cpu")
+    assert pz123._clip_image_embeddings(str(tmp_path / "absent"), frames(), "cpu") is None

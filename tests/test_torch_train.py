@@ -169,16 +169,19 @@ def test_checkpoint_written(trained):
 
 def test_port_imports_no_jax(tmp_path):
     """In a fresh interpreter, importing every port module (the diffusion
-    stack, K5's module, the eval and export modules included) and training
-    one CPU step through the launcher, with the YAML's own
-    stable-diffusion-guidance on a tiny random checkpoint directory, then
+    stack, K5's module, the eval and export modules and the image-to-3D
+    modules included) and training one CPU step through the launcher,
+    with the YAML's own stable-diffusion-guidance on a tiny random
+    checkpoint directory, then
     the test renders and the export, leaves neither jax nor the JAX package
     in sys.modules."""
     code = (
         "import sys\n"
         "from threestudio_3dgs_tpu_torch import launch\n"
         "from threestudio_3dgs_tpu_torch.diffusion import convert, unet, vae\n"
-        "from threestudio_3dgs_tpu_torch.guidance import stable_diffusion\n"
+        "from threestudio_3dgs_tpu_torch.guidance import clip, stable_diffusion, temporal_zero123\n"
+        "from threestudio_3dgs_tpu_torch.data import image\n"
+        "from threestudio_3dgs_tpu_torch.systems import gaussian_zero123\n"
         "from threestudio_3dgs_tpu_torch.models import decimate, exporter, mesh_extract, ply_io\n"
         "from threestudio_3dgs_tpu_torch.ops import flash_attention, native\n"
         "from threestudio_3dgs_tpu_torch.utils import ckpt, profiling, saving\n"
@@ -216,15 +219,19 @@ def test_launch_refuses_cpu_fallback(monkeypatch):
 
 
 def test_deferred_parts_raise(tmp_path):
-    """What the port still defers raises and names the ROADMAP item: the
-    initialisations other than the random sphere (geometry_convert_from:
-    point cloud, checkpoint, shap-e / lrm prompts); never a silent fallback
-    to the random sphere."""
-    for source in ("points.ply", "last.ckpt.npz", "shap-e:a hamburger"):
+    """A geometry_convert_from the port cannot initialise from raises,
+    never a silent fallback to the random sphere: a source of no known
+    kind (where the JAX package takes the sphere), and a point cloud or a
+    checkpoint that is not there, through init_state and the launcher.
+    (The sources it takes are held against the JAX package in
+    tests/test_torch_init.py.)"""
+    for source, error in (("mesh.obj", ValueError),
+                          (str(tmp_path / "points.ply"), FileNotFoundError),
+                          (str(tmp_path / "last.ckpt.npz"), FileNotFoundError)):
         cfg = pgf.GaussianFieldConfig(geometry_convert_from=source, init_num_pts=8, capacity=16)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(error):
             pgf.init_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="points.ply"):
         launch.main(["--config", PORT_CONFIG, "--validate", "--device", "cpu",
                      f"exp_root_dir={tmp_path}", "system.guidance_type=fake-sds-guidance",
-                     "system.geometry_convert_from=points.ply"])
+                     f"system.geometry_convert_from={tmp_path / 'points.ply'}"])

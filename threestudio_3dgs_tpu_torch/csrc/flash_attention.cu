@@ -3,7 +3,9 @@
 // Replaces the TPU kernel _flash_bhnd (threestudio_3dgs_tpu/ops/flash_attention.py,
 // kernel _kernel): O = softmax(Q K^T * scale) V for each (batch * head), forward
 // only (the SDS denoiser is never differentiated), for the UNet's long
-// self-attention: n = 4096 and 1024 tokens, head dimension 64.  The TPU kernel
+// self-attention: n = 4096 and 1024 tokens, head dimension 64 (SD 2.1,
+// MVDream) or 40 (Stable Zero123's level 0), any d <= 64 with d % 8 == 0, as
+// the TPU kernel takes any d % 8 == 0.  The TPU kernel
 // keeps all of one head's K and V in VMEM and takes an exact row softmax; at
 // n = 4096 that is far more than a block's shared memory, so both kernels here
 // walk K and V in tiles with an online softmax (a running row max m and sum l
@@ -32,10 +34,15 @@
 //    STAGES stages with TMA, each completion reported to an mbarrier (one for
 //    K, one for V, so S can start before V lands); the consumers free a
 //    stage, and Q, through two more.
-//  - Tensor maps are 3-D (d, n, bh) with the 128-byte swizzle (a d = 64 row
-//    is 128 bytes): a tile past a head's last row is zero-filled, never the
-//    next head's rows, so any n >= 1 works.  Keys >= n are masked to -inf
-//    before the row max; query rows >= n are not stored.
+//  - Tensor maps are 3-D (d, n, bh) with the 128-byte swizzle and boxes of
+//    64 columns (one 128-byte bf16 row): a tile past a head's last row is
+//    zero-filled, never the next head's rows, so any n >= 1 works; for
+//    d < 64 the columns d..63 of every box are zero-filled too, so they add
+//    exact zeros to Q K^T and leave O's columns d..63 at zero, and only the
+//    first d are stored (the row stride, 2 d bytes, is a multiple of 16 for
+//    d % 8 == 0, as TMA needs).  expect_tx counts the whole box, fill
+//    included.  Keys >= n are masked to -inf before the row max; query rows
+//    >= n are not stored.
 //    cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so
 //    the library links only the runtime.
 //  - S = Q K^T: m64nBNk16 with Q and K read from shared memory (K-major, B128
@@ -57,7 +64,10 @@
 //    is the max of the scaled ones).
 //  - setmaxnreg moves registers from the producer warpgroup (24) to the
 //    three consumers (160 each), in a single if/else split.
-//  - Only d = 64 is built (one 128-byte swizzle row); other d are refused.
+//  - d <= 64 with d % 8 == 0 is taken, padded to 64 as above; other d are
+//    refused.  At Zero123's (64, 1024, 40) the exponentials bound the
+//    kernel (the SFU floor, 0.018 ms, is above the padded MMA bound, 0.017),
+//    so the padding costs next to nothing.
 //  - Shape: three consumers (192 query rows), 128-key stages, a 3-deep ring,
 //    turns, every exponential on the SFU: of the variants timed on the H100
 //    the fastest at n = 4096 (PERF.md, section 6).  192 rows do not divide the
@@ -79,9 +89,10 @@
 //    section 6).
 //  - split_planes, a pass inside the same call, writes q's, k's and v's
 //    planes to the caller's scratch (9 bh n d bf16, 1.5x the inputs'
-//    bytes); from there every plane is a bf16 (bh, n, 64) tensor that the
-//    bf16 kernel's swizzle and descriptors read unchanged, and one TMA load
-//    of a 4-D (d, n, bh, plane) map brings a tile's three planes.
+//    bytes); from there every plane is a bf16 (bh, n, d) tensor that the
+//    bf16 kernel's swizzle and descriptors read unchanged (boxes 64 columns
+//    wide, zero-filled past d), and one TMA load of a 4-D (d, n, bh, plane)
+//    map brings a tile's three planes.
 //  - flash_fwd_split is flash_fwd_wgmma's structure at other sizes: units
 //    of 128 query rows (two consumer warpgroups), 64-key stages in a 3-deep
 //    ring (Q 48 KB + 3 x 48 KB of K and V planes = 192 KB of shared memory;
@@ -107,7 +118,7 @@
 
 namespace {
 
-constexpr int D = 64;  // head dimension, the only one built
+constexpr int D = 64;  // columns of a box: head dimensions d <= 64 are zero-filled to it
 
 // --------------------------------------------------------------- bf16 kernel
 
@@ -121,7 +132,7 @@ constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 160;
 static_assert(128 * (PRODUCER_REGS + CONSUMERS * CONSUMER_REGS) <= 65536, "register budget");
-constexpr int ROW_BYTES = D * 2;        // one bf16 row of d = 64: the 128-byte swizzle width
+constexpr int ROW_BYTES = D * 2;        // one bf16 box row of 64: the 128-byte swizzle width
 constexpr int Q_BYTES = BM * ROW_BYTES;
 constexpr int KV_BYTES = BN * ROW_BYTES;
 constexpr int SMEM_BYTES = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;  // + alignment slack
@@ -159,7 +170,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// one (d = 64) x rows x 1 box of a (d, n, bh) tensor map into shared memory
+// one 64 x rows x 1 box of a (d, n, bh) tensor map into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int row, int head,
                                          uint32_t bar) {
   asm volatile(
@@ -352,7 +363,7 @@ __device__ __forceinline__ void pack_p(const float (&s)[S_REGS], uint32_t (&pa)[
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int n,
-                    int bh, float c) {
+                    int bh, int d, float c) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 + 3 * STAGES];
   // 1024-byte aligned: the 128-byte swizzle repeats every 8 rows
@@ -487,9 +498,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + 8 * h;
         if (row >= n) continue;
-        __nv_bfloat16* dst = o + ((long long)head * n + row) * D + 2 * t;
+        __nv_bfloat16* dst = o + ((long long)head * n + row) * d + 2 * t;
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
+          if (8 * i >= d) break;  // columns d..63 are the zero fill's
           *reinterpret_cast<uint32_t*>(dst + 8 * i) =
               pack_bf16(acc[4 * i + 2 * h] / l[h], acc[4 * i + 2 * h + 1] / l[h]);
         }
@@ -547,8 +559,8 @@ __global__ void split_planes(const float4* __restrict__ q, const float4* __restr
   }
 }
 
-// one (d = 64) x rows x 1 x 3 box of a (d, n, bh, plane) tensor map: the
-// three planes of `rows` rows, plane p at dst + p * rows * 128
+// one 64 x rows x 1 x 3 box of a (d, n, bh, plane) tensor map: the three
+// planes of `rows` rows, plane p at dst + p * rows * 128
 __device__ __forceinline__ void tma_load_planes(uint32_t dst, const CUtensorMap* map, int row,
                                                 int head, uint32_t bar) {
   asm volatile(
@@ -691,7 +703,7 @@ __device__ __forceinline__ void split_p(const float (&s)[F_S_REGS], uint32_t (&p
 __global__ void __launch_bounds__(F_THREADS, 1)
     flash_fwd_split(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, float* __restrict__ o, int n, int bh,
-                    float scale) {
+                    int d, float scale) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 + 3 * F_STAGES];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -827,9 +839,10 @@ __global__ void __launch_bounds__(F_THREADS, 1)
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + 8 * h;
         if (row >= n) continue;
-        float* dst = o + ((long long)head * n + row) * D + 2 * t;
+        float* dst = o + ((long long)head * n + row) * d + 2 * t;
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
+          if (8 * i >= d) break;  // columns d..63 are the zero fill's
           *reinterpret_cast<float2*>(dst + 8 * i) =
               make_float2(acc[4 * i + 2 * h] / l[h], acc[4 * i + 2 * h + 1] / l[h]);
         }
@@ -861,10 +874,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (d, n, bh) bf16 map with boxes of (64, rows, 1), 128-byte swizzle, zero fill
-bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int n, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)ROW_BYTES, (cuuint64_t)n * ROW_BYTES};
+// (d, n, bh) bf16 map with boxes of (64, rows, 1), 128-byte swizzle, zero
+// fill (of rows past n and, for d < 64, of columns past d)
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int n, int d,
+                int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
   const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
@@ -872,16 +887,16 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, i
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bh, int n, float scale,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bh, int n, int d,
+                 float scale, cudaStream_t stream) {
   if (!(scale > 0.f) || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(encode, &tq, q, bh, n, BM) || !tensor_map(encode, &tk, k, bh, n, BN) ||
-      !tensor_map(encode, &tv, v, bh, n, BN)) {
+  if (!tensor_map(encode, &tq, q, bh, n, d, BM) || !tensor_map(encode, &tk, k, bh, n, d, BN) ||
+      !tensor_map(encode, &tv, v, bh, n, d, BN)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -895,16 +910,18 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bh, i
   const long long units = (long long)((n + BM - 1) / BM) * bh;
   const float c = (float)((double)scale * 1.4426950408889634);  // scale * log2(e)
   flash_fwd_wgmma<<<(unsigned)(units < sms ? units : sms), THREADS, SMEM_BYTES, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, n, bh, c);
+      tq, tk, tv, (__nv_bfloat16*)o, n, bh, d, c);
   return (int)cudaGetLastError();
 }
 
 // (d, n, bh, plane) map of three bf16 planes of a (bh, n, d) tensor, one
-// after the other, with boxes of (64, rows, 1, 3), 128-byte swizzle, zero fill
-bool plane_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int n, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)n, (cuuint64_t)bh, (cuuint64_t)PLANES};
-  const cuuint64_t strides[3] = {(cuuint64_t)ROW_BYTES, (cuuint64_t)n * ROW_BYTES,
-                                 (cuuint64_t)bh * n * ROW_BYTES};
+// after the other, with boxes of (64, rows, 1, 3), 128-byte swizzle, zero
+// fill (of rows past n and, for d < 64, of columns past d)
+bool plane_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int n, int d,
+               int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh, (cuuint64_t)PLANES};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2,
+                                 (cuuint64_t)bh * n * d * 2};
   const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)rows, 1, (cuuint32_t)PLANES};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
@@ -914,19 +931,19 @@ bool plane_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, in
 
 // the split pass, then the kernel on its planes; scratch holds 9 bh n d bf16
 int launch_split(const void* q, const void* k, const void* v, void* o, void* scratch, int bh, int n,
-                 float scale, cudaStream_t stream) {
+                 int d, float scale, cudaStream_t stream) {
   if (scratch == nullptr ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)scratch) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const long long count = (long long)bh * n * D;  // elements of one input, one plane
+  const long long count = (long long)bh * n * d;  // elements of one input, one plane
   const uint8_t* planes = (const uint8_t*)scratch;
   CUtensorMap tq, tk, tv;
-  if (!plane_map(encode, &tq, planes, bh, n, F_BM) ||
-      !plane_map(encode, &tk, planes + PLANES * count * 2, bh, n, F_BN) ||
-      !plane_map(encode, &tv, planes + 2 * PLANES * count * 2, bh, n, F_BN)) {
+  if (!plane_map(encode, &tq, planes, bh, n, d, F_BM) ||
+      !plane_map(encode, &tk, planes + PLANES * count * 2, bh, n, d, F_BN) ||
+      !plane_map(encode, &tv, planes + 2 * PLANES * count * 2, bh, n, d, F_BN)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_split, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -944,7 +961,7 @@ int launch_split(const void* q, const void* k, const void* v, void* o, void* scr
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long units = (long long)((n + F_BM - 1) / F_BM) * bh;
   flash_fwd_split<<<(unsigned)(units < sms ? units : sms), F_THREADS, F_SMEM_BYTES, stream>>>(
-      tq, tk, tv, (float*)o, n, bh, scale);
+      tq, tk, tv, (float*)o, n, bh, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -955,14 +972,14 @@ extern "C" {
 // q, k, v, o: (bh, n, d) contiguous and 16-byte aligned, all bf16 (is_bf16
 // = 1: the wgmma kernel, which also needs scale > 0; scratch unused) or all
 // f32 (the split kernel, any scale; scratch: 9 bh n d bf16, 16-byte
-// aligned, for the planes of q, k and v).  Only d = 64 is built.
+// aligned, for the planes of q, k and v).  Head dims d <= 64 with d % 8 == 0.
 int flash_attention_forward(const void* q, const void* k, const void* v, void* o, void* scratch,
                             int bh, int n, int d, float scale, int is_bf16, void* stream) {
-  if (d != D || bh < 0 || n < 0) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d > D || d % 8 != 0 || bh < 0 || n < 0) return (int)cudaErrorInvalidValue;
   if (bh == 0 || n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) return launch_wgmma(q, k, v, o, bh, n, scale, s);
-  return launch_split(q, k, v, o, scratch, bh, n, scale, s);
+  if (is_bf16) return launch_wgmma(q, k, v, o, bh, n, d, scale, s);
+  return launch_split(q, k, v, o, scratch, bh, n, d, scale, s);
 }
 
 }  // extern "C"

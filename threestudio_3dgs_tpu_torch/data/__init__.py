@@ -1,1 +1,1 @@
-from . import uncond  # noqa: F401
+from . import image, uncond  # noqa: F401

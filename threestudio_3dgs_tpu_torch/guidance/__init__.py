@@ -1,1 +1,1 @@
-from . import base, fake, mvdream, stable_diffusion  # noqa: F401
+from . import base, fake, mvdream, stable_diffusion, temporal_zero123  # noqa: F401

@@ -76,10 +76,10 @@ class StableDiffusionGuidance(BaseGuidance):
     def _load(self, module_cls, model_cfg, state_dict):
         """The module of a state dict, frozen on the device in f32 or, with
         ``half_precision_weights``, cast to bf16 with f32 norms."""
-        from ..diffusion.convert import cast_half, load_frozen
+        from ..diffusion.convert import load_frozen
 
-        module = load_frozen(module_cls, model_cfg, state_dict, self.device)
-        return cast_half(module) if self.cfg.half_precision_weights else module
+        return load_frozen(module_cls, model_cfg, state_dict, self.device,
+                           self.cfg.half_precision_weights)
 
     def _try_load_local(self, path: str):
         """The UNet of a local diffusers directory (and its VAE encoder, if

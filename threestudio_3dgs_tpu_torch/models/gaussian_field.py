@@ -3,11 +3,14 @@
 
 The field lives in tensors of static capacity with an ``alive`` mask, so a
 port state compares row for row with the JAX package's.  Here: the
-parameters and activations, the random-sphere initialisation, the
-per-field learning rates, the Adam step, the densification statistics,
-the structural ops (clone / split / prune / cap-prune / opacity reset /
-SuGaR prune as masked scatters into free slots, Adam moments zeroed with
-the rows they rewrite), their interval gating and the PLY export.
+parameters and activations, the initialisations (the random sphere, a
+checkpoint or PLY warm start, a plain point cloud, the prompt fallback;
+an unrecognised ``geometry_convert_from`` raises where the JAX package
+falls back to the sphere), the per-field learning rates, the Adam step,
+the densification statistics, the structural ops (clone / split / prune /
+cap-prune / opacity reset / SuGaR prune as masked scatters into free
+slots, Adam moments zeroed with the rows they rewrite), their interval
+gating and the PLY export.
 
 A structural op returns a new state and leaves the state it was given
 untouched.  Its random draws come from a ``torch.Generator``; the test-only
@@ -18,6 +21,8 @@ draws).
 from __future__ import annotations
 
 import dataclasses
+import os
+import zlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -228,14 +233,90 @@ def state_from_params(params: GaussianParams, alive: torch.Tensor) -> GaussianSt
     )
 
 
+def source_kind(cfg: GaussianFieldConfig) -> str:
+    """What ``geometry_convert_from`` names: ``"prompt"`` (``shap-e:`` /
+    ``lrm:``), ``"checkpoint"`` (``.ckpt(.npz)``), ``"ply"`` (every 3DGS
+    attribute), ``"vertex_ply"`` (with ``load_ply_only_vertex``, the points
+    of a plain cloud) or ``"sphere"`` (empty); anything else raises."""
+    src = cfg.geometry_convert_from
+    if src.startswith(("shap-e:", "lrm:")):
+        return "prompt"
+    if src.endswith((".ckpt.npz", ".ckpt")):
+        return "checkpoint"
+    if src.endswith(".ply"):
+        return "vertex_ply" if cfg.load_ply_only_vertex else "ply"
+    if src:
+        raise ValueError(f"geometry_convert_from={src!r}: not a shap-e: / lrm: prompt, "
+                         ".ckpt(.npz) or .ply")
+    return "sphere"
+
+
+# the sources that carry trained SH bands, so the field starts at the
+# config's degree; the others start at 0
+WARM_STARTS = ("checkpoint", "ply")
+
+
+def _vertex_ply_pcd(path: str, cfg: GaussianFieldConfig, seed: int):
+    """A plain point-cloud PLY (x / y / z [+ red / green / blue]) with the
+    reference's hard-coded axis permutation (p @ [[0,1,0],[0,0,1],[1,0,0]]);
+    its colours / 255, or with ``load_vertex_only_position`` or no colours
+    the random-sphere init's colours drawn from ``seed``."""
+    cols = ply_io.read_ply_table(path)
+    positions = np.stack([cols["x"], cols["y"], cols["z"]], axis=1).astype(np.float32)
+    positions = positions @ np.array([[0, 1, 0], [0, 0, 1], [1, 0, 0]], np.float32)
+    if "red" in cols and not cfg.load_vertex_only_position:
+        colors = np.stack([cols["red"], cols["green"], cols["blue"]], axis=1).astype(np.float32)
+        return positions, colors / 255.0
+    shs = np.random.default_rng(seed).random((positions.shape[0], 3)).astype(np.float32) / 255.0
+    return positions, shs * 0.28209479177387814 + 0.5
+
+
+def _gaussian_ply_params(path: str, cfg: GaussianFieldConfig,
+                         device) -> Tuple[GaussianParams, torch.Tensor]:
+    """Every attribute of a 3DGS PLY, padded to the capacity."""
+    raw = ply_io.load_gaussian_ply(path, cfg.sh_degree)
+    cap = cfg.resolved_capacity()
+    n = raw["xyz"].shape[0]
+
+    def dev(name):
+        return torch.as_tensor(_pad_cap(np.asarray(raw[name], np.float32), cap), device=device)
+
+    params = GaussianParams(
+        xyz=dev("xyz"), features_dc=dev("features_dc"), features_rest=dev("features_rest"),
+        scaling=dev("scaling"), rotation=dev("rotation"), opacity=dev("opacity"),
+        normal=torch.zeros((cap, 3), device=device) if cfg.pred_normal else None,
+    )
+    alive = torch.zeros(cap, dtype=torch.bool, device=device)
+    alive[:n] = True
+    return params, alive
+
+
 def init_state(cfg: GaussianFieldConfig, seed: int = 0, device="cuda") -> GaussianState:
-    """The random-sphere initialisation.  Point-cloud, checkpoint and
-    prompt-based initialisations are not ported yet."""
-    if cfg.geometry_convert_from:
-        raise NotImplementedError(
-            f"geometry_convert_from={cfg.geometry_convert_from!r} is not ported yet "
-            "(ROADMAP.md, queue 1, item 5)"
-        )
+    """The initial field per ``geometry_convert_from``: a ``shap-e:`` /
+    ``lrm:`` prompt, a port checkpoint (``.ckpt.npz``; its field with fresh
+    Adam moments and zeroed statistics, at its own capacity), a PLY (every
+    3DGS attribute, or with ``load_ply_only_vertex`` the points of a plain
+    point cloud), or without one the random sphere."""
+    src, kind = cfg.geometry_convert_from, source_kind(cfg)
+    if kind == "prompt":
+        # no shap-e or LRM model is ported: a sphere cloud seeded by the
+        # prompt, as the JAX package draws it without those weights
+        prompt = src.partition(":")[2]
+        xyz, colors = random_sphere_pcd(cfg, zlib.crc32(prompt.encode("utf-8")) ^ seed)
+        return state_from_params(*params_from_pcd(xyz, colors, cfg, device))
+    if kind == "checkpoint":
+        from ..utils.ckpt import load_checkpoint
+
+        gauss = load_checkpoint(src, device)[0].gauss
+        params = GaussianParams(**{k: v.clone() for k, v in gauss.params.as_dict().items()})
+        return state_from_params(params, gauss.alive.clone())
+    if kind in ("ply", "vertex_ply"):
+        if not os.path.exists(src):
+            raise FileNotFoundError(src)
+        if kind == "vertex_ply":
+            return state_from_params(*params_from_pcd(*_vertex_ply_pcd(src, cfg, seed), cfg,
+                                                      device))
+        return state_from_params(*_gaussian_ply_params(src, cfg, device))
     xyz, colors = random_sphere_pcd(cfg, seed)
     params, alive = params_from_pcd(xyz, colors, cfg, device)
     return state_from_params(params, alive)
@@ -453,7 +534,7 @@ class GaussianField:
             cfg = parse_structured(GaussianFieldConfig, cfg)
         self.cfg = cfg
         self.device = torch.device(device)
-        self.active_sh_degree = 0
+        self.active_sh_degree = cfg.sh_degree if source_kind(cfg) in WARM_STARTS else 0
 
     def init_state(self, seed: int = 0) -> GaussianState:
         return init_state(self.cfg, seed, self.device)

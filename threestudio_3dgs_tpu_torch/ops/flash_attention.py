@@ -10,7 +10,9 @@ for CUDA tensors; it refuses inputs that require grad on either device.  On
 the card ``k5_kernel`` picks K5's kernel by type alone: bf16 (the UNet's
 type) runs on ``wgmma`` with TMA-fed K/V tiles; f32 splits q, k and v into
 three bf16 planes each and runs both products on ``wgmma`` as six plane
-products; a shape that the picked kernel does not take raises.
+products.  Both take every head dim d <= 64 with d % 8 == 0 (64 for SD 2.1
+and MVDream, 40 for Stable Zero123's level 0), zero-filled to 64 columns
+inside the kernel; a shape that the picked kernel does not take raises.
 
 ``attention`` keeps the JAX package's routing rule, with ``device.type ==
 "cuda"`` in place of ``default_backend() == "tpu"`` (the JAX rule's
@@ -27,7 +29,7 @@ import torch
 from . import native
 
 BQ = 256  # the TPU kernel's query rows per program; the routing rule keeps it
-HEAD_DIM = 64  # the only head dimension K5 is built for (320/5, 640/10)
+MAX_HEAD_DIM = 64  # K5 takes d <= 64, d % 8 == 0 (320/5, 640/10; Zero123's 320/8)
 MIN_SEQ = 1024
 
 
@@ -66,8 +68,8 @@ def k5_kernel(dtype, bh, n, d, scale) -> str:
         kernel = "split_bf16"
     else:
         raise ValueError(f"K5 takes bf16 or f32 inputs, got {dtype}")
-    if d != HEAD_DIM:
-        raise ValueError(f"K5 is built for head dim {HEAD_DIM}, got {d}")
+    if not (0 < d <= MAX_HEAD_DIM and d % 8 == 0):
+        raise ValueError(f"K5 takes head dims d <= {MAX_HEAD_DIM} with d % 8 == 0, got {d}")
     if kernel == "wgmma" and not scale > 0:
         # the wgmma kernel takes the row max of the unscaled scores
         raise ValueError(f"K5's bf16 kernel takes scale > 0, got {scale}")

@@ -1,1 +1,1 @@
-from . import gaussian_mvdream, gaussian_splatting  # noqa: F401
+from . import gaussian_mvdream, gaussian_splatting, gaussian_zero123  # noqa: F401

@@ -178,21 +178,30 @@ class BaseGaussianSystem:
         )
 
     # -- train step ----------------------------------------------------------
+    def forward_loss(self, gs, extra_params, batch, step, sched, generator):
+        """The step's renders and loss (overridden per system): returns the
+        total loss, the logs, the render outputs in order (the last one's
+        radii and visibility feed the densify statistics, and every one's
+        pair counts the logs) and ``vs_dummy``, the (B, CAP, 2) screen-space
+        offset whose gradient norm those statistics take."""
+        bs = int(np.asarray(batch["c2w"]).shape[0])
+        vs_dummy = torch.zeros((bs, gs.capacity, 2), device=self.device, requires_grad=True)
+        out = self.render_batch(gs, extra_params, batch, generator, sched, True, vs_dummy)
+        total, logs = self.compute_loss(out, gs, batch, sched, generator)
+        return total, dict(logs), [out], vs_dummy
+
     def train_step(self, state: SystemState, batch: Dict[str, Any], step: int,
                    generator: torch.Generator):
         sched = self.sched_scalars(step)
-        bs = int(np.asarray(batch["c2w"]).shape[0])
         gauss = state.gauss
         leaves = {
             k: v.detach().requires_grad_(True) for k, v in gauss.params.as_dict().items()
         }
         extra = {k: v.detach().requires_grad_(True)
                  for k, v in flatten_extra(state.extra_params).items()}
-        vs_dummy = torch.zeros((bs, gauss.capacity, 2), device=self.device, requires_grad=True)
         gs = dataclasses.replace(gauss, params=gf.GaussianParams(**leaves))
-        out = self.render_batch(gs, unflatten_extra(extra), batch, generator, sched, True,
-                                vs_dummy)
-        total, logs = self.compute_loss(out, gs, batch, sched, generator)
+        total, logs, outs, vs_dummy = self.forward_loss(gs, unflatten_extra(extra), batch, step,
+                                                        sched, generator)
 
         inputs = list(leaves.values()) + list(extra.values()) + [vs_dummy]
         grads = torch.autograd.grad(total, inputs, allow_unused=True)
@@ -207,11 +216,10 @@ class BaseGaussianSystem:
             extra_params = unflatten_extra(new)
         vs_grad_norm = torch.linalg.norm(grads[-1], dim=-1)  # (B, CAP), NDC units
         gauss = gf.accumulate_stats(
-            gauss, out["radii"].float(), out["visibility_filter"], vs_grad_norm
+            gauss, outs[-1]["radii"].float(), outs[-1]["visibility_filter"], vs_grad_norm
         )
-        logs = dict(logs)
-        logs["n_dropped_pairs"] = int(out["n_dropped"].sum())
-        logs["n_pairs_max"] = int((out["n_pairs"] + out["n_dropped"]).max())
+        logs["n_dropped_pairs"] = sum(int(o["n_dropped"].sum()) for o in outs)
+        logs["n_pairs_max"] = max(int((o["n_pairs"] + o["n_dropped"]).max()) for o in outs)
         gauss, _ = self.geometry.update_states(gauss, step, generator)
         return SystemState(gauss=gauss, extra_params=extra_params, extra_opt=extra_opt), logs
 

@@ -183,16 +183,14 @@ RASTER_KERNELS = ("blend_forward", "blend_backward", "segsum_monotone", "expand_
 
 
 def k5_inputs(bh: int, n: int, dtype: torch.dtype, seed: int, device="cuda",
-              rising: bool = False) -> List[torch.Tensor]:
-    """q, k, v of shape (bh, n, 64), standard normal drawn in f32 from
+              rising: bool = False, d: int = 64) -> List[torch.Tensor]:
+    """q, k, v of shape (bh, n, d), standard normal drawn in f32 from
     ``seed`` on ``device`` and cast to ``dtype``.  ``rising``: key j is
     scaled by 0.1 + 9.9 j / (n - 1), so the keys come in rising norm, the
-    logits (at scale 1/8) span about +-30 and a row's running max grows
-    from key tile to key tile (every tile rescales)."""
-    from ..ops.flash_attention import HEAD_DIM
-
+    logits (at scale 1/8, d = 64) span about +-30 and a row's running max
+    grows from key tile to key tile (every tile rescales)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    q, k, v = (torch.randn((bh, n, HEAD_DIM), generator=gen, device=device) for _ in range(3))
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device=device) for _ in range(3))
     if rising:
         k = k * torch.linspace(0.1, 10.0, n, device=device)[:, None]
     return [t.to(dtype) for t in (q, k, v)]
@@ -261,6 +259,58 @@ def tiny_sd_card_vs_cpu(root: str, seed: int = 0) -> Dict[str, tuple]:
         x = torch.tensor(rgb, device=device, requires_grad=True)
         native.reset_launches()
         out = guidance(x, Prompt(), {}, draws=draws)
+        out["loss_sds"].backward()
+        results[device] = (float(out["loss_sds"].detach()), x.grad.cpu(),
+                           native.LAUNCHES["flash_attention_forward"])
+    return results
+
+
+# the tiny Zero123 checkpoint of the card-against-CPU check: 320 channels
+# and ZERO123_UNET's 8 heads at level 0 (d = 40, Stable Zero123's), so its
+# 32^2 = 1024-token self-attention meets the routing rule and runs K5 at
+# d = 40; the 2-level VAE takes the 64^2 conditioning size to 32^2
+TINY_ZERO123_UNET = dict(in_channels=8, block_out_channels=(320, 320), attention_head_dim=(8, 8),
+                         cross_attention_dim=32, use_linear_projection=False,
+                         down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                         up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"))
+TINY_ZERO123_K5_LAUNCHES = 5  # 2 down + 3 up transformer blocks at level 0
+
+
+def tiny_zero123_card_vs_cpu(root: str, seed: int = 0) -> Dict[str, tuple]:
+    """Write a seeded random tiny ldm ``.ckpt`` under ``root`` and run the
+    Zero123 guidance (f32 weights, conditioning size 64, the stand-in CLIP
+    embeddings) on it on the card and on the CPU: ``prepare_embeddings`` on
+    one frame, then one call on two renders with the same draws.  Returns,
+    per device ("cuda", "cpu"), the SDS loss, its gradient w.r.t. rgb (on
+    the CPU) and the K5 launches of the call."""
+    from ..diffusion import convert, unet, vae
+    from ..guidance.temporal_zero123 import StableZero123Guidance
+    from ..ops import native
+
+    path = os.path.join(root, "zero123-tiny.ckpt")
+    convert.write_random_ldm_checkpoint(path, unet.UNet2DConditionConfig(**TINY_ZERO123_UNET),
+                                        vae.AutoencoderKLConfig(**TINY_SD_VAE),
+                                        clip_dim=TINY_ZERO123_UNET["cross_attention_dim"],
+                                        seed=seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    frame = rng.uniform(size=(1, 64, 64, 3)).astype(np.float32)
+    rgb = rng.uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    batch = {"elevation": np.array([20.0, -5.0], np.float32),
+             "azimuth": np.array([40.0, 200.0], np.float32),
+             "camera_distances": np.array([3.8, 3.8], np.float32)}
+    draws = {"t": torch.tensor([300, 900]),
+             "noise": torch.tensor(rng.normal(size=(2, 4, 32, 32)).astype(np.float32)),
+             "latent_noise": torch.tensor(rng.normal(size=(2, 4, 32, 32)).astype(np.float32))}
+    results = {}
+    for device in ("cuda", "cpu"):
+        guidance = StableZero123Guidance({"pretrained_model_name_or_path": path,
+                                          "half_precision_weights": False,
+                                          "cond_image_size": 64, "cond_elevation_deg": 5.0,
+                                          "cond_camera_distance": 3.8}, device=device)
+        guidance.prepare_embeddings(frame)
+        x = torch.tensor(rgb, device=device, requires_grad=True)
+        native.reset_launches()
+        out = guidance(x, None, batch, draws=draws)
         out["loss_sds"].backward()
         results[device] = (float(out["loss_sds"].detach()), x.grad.cpu(),
                            native.LAUNCHES["flash_attention_forward"])
