@@ -111,11 +111,32 @@ Phases, each of which fails the run with a non-zero exit:
      run's ``.ckpt.npz`` and its PLY, each loaded field equal to the saved
      one, and 2 steps from each, and ``--export --resume`` its checkpoint
      (an OBJ with faces); time K5 at (64, 1024, 40) bf16;
- 10. print the per-kernel JSON line (launches from the training runs, K6's
-     from its checks, K5 at d = 40 from ``zero123_guidance``; times at the
-     main path's shapes, K6's at the bench scene; K1-K4 rows at the trained
-     512^2 view, at the MVDream view and at the zero123 YAML's 128^2 ref
-     view (launches from ``train_zero123``); one K5 row per shape and type;
+ 10. video-to-4D: hold K5 at the temporal Zero123's CFG batch, (320, 1024,
+     40) bf16, on standard normal and rising keys; then ``train_gs4d``: 10
+     steps of gs4d_motion.yaml through ``launch.main`` at its widths (10
+     frames, the reference views at 256^2 and from step 5 at 512^2, 20
+     random views a step at 256^2, 4096 points in a 651,024 capacity, the
+     lite ARAP from step 4 with its k-NN refreshed every 4 steps) with its
+     temporal-stable-zero123-guidance on the random Stable Zero123
+     checkpoint, counters zeroed just before: the bf16 denoiser built
+     through ``attach_video_frames``, K5 exactly 5 times a step at (320,
+     1024, 40) and nowhere else, every loss finite (``loss_ref_gs`` and
+     ``loss_lite_arap_reg`` logged each step), grad_norm > 0, motion and
+     omega trained (trbf_center and trbf_scale, which take no gradient,
+     unmoved); the 8 timed test renders and the temporal PLY read back
+     equal to the trained rows; 2 more steps with ``--resume`` from its
+     checkpoint; then 4 steps each of gs4d.yaml (spline with per-frame
+     deltas) and gs4d_static.yaml (SuGaR's opacity, density and normal
+     regularisers), on the analytic prior; K1-K4 held and timed at a
+     256^2 reference-frame view of the trained 4D field, K5 timed at
+     (320, 1024, 40);
+ 11. print the per-kernel JSON line (launches from the training runs, K6's
+     from its checks, K5 at d = 40 from ``zero123_guidance`` and
+     ``train_gs4d``; times at the main path's shapes, K6's at the bench
+     scene; K1-K4 rows at the trained 512^2 view, at the MVDream view, at
+     the zero123 YAML's 128^2 ref view (launches from ``train_zero123``)
+     and at the 4D field's 256^2 reference-frame view (launches from
+     ``train_gs4d``'s 10 steps); one K5 row per shape and type;
      ``ms`` and ``library_ms`` wrapper times, ``device_ms`` and
      ``library_device_ms`` device times; K5's bound the largest of its
      bytes, its products and its exponentials on the SFU at the card's
@@ -170,6 +191,16 @@ ZERO123_DIR = os.path.join(RUN_DIR, "zero123-random")
 ZERO123_CALLS = 10
 ZERO123_STEPS = 10
 WARM_STEPS = 2
+# video-to-4D: gs4d_motion at its YAML's widths, 10 frames, 20 random views
+# a step at 256^2, so the temporal Zero123's CFG batch is 40: 40 x 8 heads of
+# 32^2 tokens at d = 40 at level 0
+GS4D_MOTION_CONFIG = os.path.join(CONFIG_DIR, "gs4d_motion.yaml")
+GS4D_CONFIG = os.path.join(CONFIG_DIR, "gs4d.yaml")
+GS4D_STATIC_CONFIG = os.path.join(CONFIG_DIR, "gs4d_static.yaml")
+GS4D_STEPS = 10
+GS4D_SHORT_STEPS = 4
+K5_GS4D_SHAPES = ((320, 1024, 40),)
+K5_GS4D_CHECKS = ((320, 1024, 40, "bfloat16", False), (320, 1024, 40, "bfloat16", True))
 # the synthetic tokenizer's merges come from these lines
 TOKENIZER_CORPUS = (
     "a hamburger, a DSLR photo of a delicious hamburger on a wooden plate. a zoomed out "
@@ -1251,6 +1282,174 @@ def train_zero123(torch, native):
     return launches, ref_inp
 
 
+def trained_4d_scene(torch, trainer, size=256):
+    """A reference-frame view of the trained 4D field at ``size``^2: the
+    fixed front camera, the field evaluated at the first frame's time."""
+    from threestudio_3dgs_tpu_torch.ops import camera as cam_mod
+
+    data, system = trainer.data, trainer.system
+    fovy = float(data.fovy[0])
+    cam = cam_mod.camera_from_c2w(data.c2w[0], fovy, fovy, size, size)
+    with torch.no_grad():
+        means, scales, quats, opac, colors = system.geometry.get_timed_all(
+            trainer.state.gauss, data.timestamps[0], int(data.frame_indices[0]),
+            trainer.state.extra_params.get("deformation"))
+    return dict(means=means, scales=scales, quats=quats, opac=opac[:, 0], colors=colors, cam=cam,
+                alive=trainer.state.gauss.alive, tile_size=system.renderer.cfg.tile_size)
+
+
+def check_4d_rows(torch, rows, label, keys):
+    """Every logged train/ value finite, ``keys`` logged on every step and
+    no pair dropped."""
+    for row in rows:
+        bad = [k for k, v in row.items() if k.startswith("train/") and not np.isfinite(v)]
+        missing = [k for k in keys if k not in row]
+        if bad or missing or row["n_dropped_pairs"] != 0:
+            fail(f"{label} step {row['step']}: non-finite {bad}, missing {missing}, "
+                 f"{row['n_dropped_pairs']} dropped pairs")
+
+
+def train_gs4d(torch, native, ckpt):
+    """The video-to-4D YAMLs through launch.main: gs4d_motion for
+    GS4D_STEPS steps on the Stable Zero123 checkpoint, counters zeroed just
+    before (the denoiser built through attach_video_frames, K5 at exactly
+    its shapes, the losses finite, the guidance's grad_norm > 0, motion and
+    omega trained), its temporal PLY read back and a --resume of its
+    checkpoint; then gs4d.yaml (spline + per-frame deltas) and
+    gs4d_static.yaml (SuGaR's regularisers) for GS4D_SHORT_STEPS each on the
+    analytic prior.  Returns the motion run's launches, K5's launches by
+    shape, and K1-K4's inputs at a 256^2 reference-frame view of its
+    trained field."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.models.spacetime import TEMPORAL_FIELDS
+    from threestudio_3dgs_tpu_torch.ops.flash_attention import shape_tag
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
+    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+
+    motion = ["data.resolution_milestones=[5]", "system.loss.lambda_lite_arap_reg=[3,0,1000.,4]",
+              "system.freq.update_arap=4", "data.random_camera.n_test_views=8",
+              f"system.guidance_zero123.pretrained_model_name_or_path={ckpt}",
+              f"exp_root_dir={os.path.join(RUN_DIR, 'gs4d_motion')}"]
+    argv = ["--config", GS4D_MOTION_CONFIG, "--train", f"trainer.max_steps={GS4D_STEPS}",
+            "trainer.val_check_interval=0"] + motion
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    trainer = launch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    shape_launches = {tag: c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
+                      if fn == "flash_attention_forward"}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = trainer.metrics_log
+    if len(rows) != GS4D_STEPS:
+        fail(f"train_gs4d: expected {GS4D_STEPS} logged steps, got {len(rows)}")
+    check_4d_rows(torch, rows, "train_gs4d", ("train/loss_ref_gs", "train/loss_lite_arap_reg"))
+    for row in rows:
+        if not row["zero123/grad_norm"] > 0:
+            fail(f"train_gs4d step {row['step']}: grad_norm {row['zero123/grad_norm']}")
+    guidance = trainer.system.guidance
+    if guidance.unet is None or guidance.unet.cfg.dtype != torch.bfloat16:
+        fail("train_gs4d: attach_video_frames did not build the bf16 Zero123 denoiser")
+    missing = [k for k in RASTER_KERNELS if launches[k] == 0]
+    want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * GS4D_STEPS
+            for shape in K5_GS4D_SHAPES}
+    if missing or shape_launches != want or launches["flash_attention_forward"] != sum(
+            want.values()):
+        fail(f"train_gs4d: kernels never launched {missing}; K5 launched "
+             f"{launches['flash_attention_forward']} times, by shape {shape_launches}; "
+             f"want {want}")
+    init = trainer.system.init_state(trainer.cfg.seed).gauss.params
+    gauss = trainer.state.gauss
+    alive = gauss.alive
+    moved = {k: float((getattr(gauss.params, k) - getattr(init, k))[alive].abs().max())
+             for k in ("motion", "omega", "trbf_center", "trbf_scale")}
+    # trbf_center and trbf_scale take no gradient (dt is detached and the
+    # TRBF opacity is off, as in the JAX package): they must not move
+    if not (moved["motion"] > 0 and moved["omega"] > 0) or moved["trbf_center"] or moved[
+            "trbf_scale"]:
+        fail(f"train_gs4d: temporal fields moved {moved}")
+    sizes = trainer.data.heights
+    step_ms = [row["step_s"] * 1e3 for row in rows[1:]]
+    n_params = sum(p.numel() for p in guidance.unet.parameters())
+    rc = trainer.data.random_camera_cfg
+    log(f"train_gs4d: {GS4D_STEPS} steps of gs4d_motion.yaml ({trainer.cfg.data['num_frames']} "
+        f"frames, ref views at {sizes} from steps {trainer.data.resolution_milestones[1:]}, "
+        f"{rc.batch_size} random views at {rc.height}^2, capacity {gauss.capacity}, "
+        f"{gauss.n_alive} alive; temporal-stable-zero123-guidance on the random checkpoint, "
+        f"ZERO123_UNET {n_params / 1e9:.3f} B parameters in bf16, CFG batch "
+        f"{2 * rc.batch_size}): {wall:.2f} s wall incl. loading and 8 test renders; median step "
+        f"(steps 2-{GS4D_STEPS}) {statistics.median(step_ms):.1f} ms (min {min(step_ms):.1f}, "
+        f"max {max(step_ms):.1f}); peak device memory {peak:.2f} GiB; last loss_total "
+        f"{rows[-1]['train/loss_total']:.6g}, loss_ref_gs {rows[-1]['train/loss_ref_gs']:.6g}, "
+        f"loss_lite_arap_reg {rows[-1]['train/loss_lite_arap_reg']:.6g}, grad_norm "
+        f"{rows[-1]['zero123/grad_norm']:.6g}; moved {moved}; launches {launches}, K5 by shape "
+        f"{shape_launches}")
+
+    # the temporal PLY of the test renders' step holds the alive rows
+    ply = os.path.join(trainer.save_dir, "save", "point_cloud.ply")
+    back = trainer.system.geometry.load_temporal_ply(ply)
+    for k in TEMPORAL_FIELDS:
+        t = getattr(gauss.params, k)
+        if t is not None and not np.array_equal(back[k], t[alive].cpu().numpy()):
+            fail(f"train_gs4d: the temporal PLY's {k} differs from the trained field's")
+    n_test = len(os.listdir(os.path.join(trainer.save_dir, "save", f"it{GS4D_STEPS}-test")))
+    ref_inp = view_inputs(trained_4d_scene(torch, trainer), seed=6)
+    ckpt_npz = os.path.join(trainer.save_dir, "ckpts", "last.ckpt.npz")
+    del trainer, guidance
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the resumed steps on the analytic prior: the checkpoint's field and
+    # step are what is checked, and the denoiser is already held above
+    resumed = launch.main(["--config", GS4D_MOTION_CONFIG, "--train", "--resume", ckpt_npz,
+                           f"trainer.max_steps={GS4D_STEPS + 2}",
+                           "trainer.val_check_interval=0"] + motion[:-2]
+                          + [f"exp_root_dir={os.path.join(RUN_DIR, 'gs4d_resume')}"])
+    if resumed.step != GS4D_STEPS + 2 or len(resumed.metrics_log) != 2:
+        fail(f"train_gs4d --resume: step {resumed.step}, {len(resumed.metrics_log)} logged steps")
+    check_4d_rows(torch, resumed.metrics_log, "train_gs4d --resume", ())
+    log(f"train_gs4d: {n_test} test renders with timestamps, the temporal PLY's "
+        f"{len(TEMPORAL_FIELDS)} fields equal to the trained rows; --resume "
+        f"{os.path.relpath(ckpt_npz, ROOT)} -> 2 more steps, last loss_total "
+        f"{resumed.metrics_log[-1]['train/loss_total']:.6g}, {time.perf_counter() - t0:.2f} s")
+    del resumed
+    torch.cuda.empty_cache()
+
+    png = os.path.join(RUN_DIR, "reference_rgba.png")
+    for name, config, extra, keys in (
+            ("gs4d", GS4D_CONFIG, [], ("train/loss_ref_gs",)),
+            ("gs4d_static", GS4D_STATIC_CONFIG, [f"data.image_path={png}"],
+             ("train/loss_opacity_binary", "train/loss_density_regulation",
+              "train/loss_normal_regulation"))):
+        native.reset_launches()
+        t0 = time.perf_counter()
+        short = launch.main(["--config", config, "--train", f"trainer.max_steps={GS4D_SHORT_STEPS}",
+                             "trainer.val_check_interval=0", "trainer.log_every_n_steps=1",
+                             "data.random_camera.n_test_views=4",
+                             f"exp_root_dir={os.path.join(RUN_DIR, name)}"] + extra)
+        torch.cuda.synchronize()
+        short_launches = dict(native.LAUNCHES)
+        if len(short.metrics_log) != GS4D_SHORT_STEPS:
+            fail(f"train_{name}: {len(short.metrics_log)} logged steps")
+        check_4d_rows(torch, short.metrics_log, f"train_{name}", keys)
+        missing = [k for k in RASTER_KERNELS if short_launches[k] == 0]
+        if missing:
+            fail(f"train_{name}: kernels never launched {missing}")
+        step_ms = [row["step_s"] * 1e3 for row in short.metrics_log[1:]]
+        last = short.metrics_log[-1]
+        log(f"train_{name}: {GS4D_SHORT_STEPS} steps ({short.system.geometry.cfg.__class__.__name__}"
+            f", capacity {short.state.gauss.capacity}, the analytic prior) "
+            f"{time.perf_counter() - t0:.2f} s wall incl. 4 test renders; steps 2-"
+            f"{GS4D_SHORT_STEPS} {', '.join(f'{ms:.1f}' for ms in step_ms)} ms; last "
+            + ", ".join(f"{k.split('/')[-1]} {last[k]:.6g}" for k in keys + ("train/loss_total",))
+            + f"; launches {short_launches}")
+        del short
+        torch.cuda.empty_cache()
+    return launches, {shape: shape_launches[shape_tag(*shape)] for shape in K5_GS4D_SHAPES}, \
+        ref_inp
+
+
 def main():
     import torch
 
@@ -1368,7 +1567,8 @@ def main():
     # then at its published widths), the zero123 YAML and its warm starts
     k5_errs.update(check_flash(torch, K5_Z123_CHECKS, seed=40))
     check_zero123_small(torch)
-    z123_k5 = zero123_guidance(torch, native, write_zero123_checkpoint(torch))
+    z123_ckpt = write_zero123_checkpoint(torch)
+    z123_k5 = zero123_guidance(torch, native, z123_ckpt)
     z123_launches, z123_inp = train_zero123(torch, native)
     z123_errs = check_kernels(torch, z123_inp, "z123")
     log("zero123 ref-view timing (128^2, the trained zero123 field; these go in the kernels "
@@ -1377,9 +1577,19 @@ def main():
     del z123_inp
     k5_z123_times = time_flash(torch, K5_Z123_SHAPES, torch.bfloat16)
 
+    # video-to-4D: K5 at the temporal guidance's CFG batch, the 4D YAMLs
+    k5_errs.update(check_flash(torch, K5_GS4D_CHECKS, seed=60))
+    gs4d_launches, gs4d_k5, gs4d_inp = train_gs4d(torch, native, z123_ckpt)
+    gs4d_errs = check_kernels(torch, gs4d_inp, "gs4d")
+    log("gs4d reference-frame timing (256^2, the trained 4D field; these go in the kernels "
+        "line):")
+    gs4d_timing = time_kernels(torch, gs4d_inp, "gs4d")
+    del gs4d_inp
+    k5_gs4d_times = time_flash(torch, K5_GS4D_SHAPES, torch.bfloat16)
+
     # (row name, kernel, launches, max abs error, timings): K1-K4 at the
-    # trained view, the MVDream view and the zero123 ref view, K5 once per
-    # main-path shape
+    # trained view, the MVDream view, the zero123 ref view and the 4D
+    # reference-frame view, K5 once per main-path shape
     raster = [name for name in KERNELS if name not in ("flash_attention_forward", "expand_slots")]
     rows = [(name, name, train_launches[name], max(e[name] for e in errs.values()), timing[name])
             for name in raster]
@@ -1396,6 +1606,11 @@ def main():
     rows += [(f"flash_attention_forward@{bh}x{n}x{d}", "flash_attention_forward",
               z123_k5[(bh, n, d)], k5_errs[(bh, n, d, "bfloat16")], k5_z123_times[(bh, n, d)])
              for bh, n, d in K5_Z123_SHAPES]
+    rows += [(f"{name}@gs4d", name, gs4d_launches[name], gs4d_errs[name], gs4d_timing[name])
+             for name in raster]
+    rows += [(f"flash_attention_forward@{bh}x{n}x{d}", "flash_attention_forward",
+              gs4d_k5[(bh, n, d)], k5_errs[(bh, n, d, "bfloat16")], k5_gs4d_times[(bh, n, d)])
+             for bh, n, d in K5_GS4D_SHAPES]
     # K6 is on no training path: its launches are its checks', its time the
     # bench scene's
     rows.append(("expand_slots", "expand_slots", k6_launches, k6_err, k6_time))

@@ -803,3 +803,66 @@ def test_zero123_training_and_warm_start_on_card(cuda, tmp_path):
     assert torch.equal(warm.alive, trainer.state.gauss.alive)
     for k, v in trainer.state.gauss.params.as_dict().items():
         assert torch.equal(getattr(warm.params, k), v), k
+
+
+def test_gs4d_steps_on_card_match_cpu(cuda, tmp_path):
+    """Two steps of gs4d_motion.yaml (polynomial motion, the ref-frame
+    anchor, the lite ARAP on from step 0 at a fixed time) on the card and
+    on the CPU from one initial field, at 64^2 with 3 frames: the losses
+    to 1e-3 relative, 99% of the alive rows of each field within 2% of its
+    learning rate (a row at a discontinuity of the rasterizer may take
+    another gradient from states that differ by rounding), every raster
+    kernel launched, no K5 (analytic prior)."""
+    from threestudio_3dgs_tpu_torch.models import gaussian_field as gf
+    from threestudio_3dgs_tpu_torch.models.optim import AdamState
+    from threestudio_3dgs_tpu_torch.systems.base import SystemState
+    from threestudio_3dgs_tpu_torch.trainer import Trainer
+    from threestudio_3dgs_tpu_torch.utils.config import load_config
+
+    overrides = [
+        "trainer.max_steps=2", "trainer.val_check_interval=0", "trainer.log_every_n_steps=1",
+        "data.height=64", "data.width=64", "data.random_camera.height=64",
+        "data.random_camera.width=64", "data.random_camera.batch_size=1",
+        "data.video_length=3", "data.num_frames=3", "system.geometry.init_num_pts=512",
+        "system.geometry.capacity=2048", "system.renderer.tile_size=16",
+        "system.guidance_zero123.min_step_percent=0.5",
+        "system.guidance_zero123.max_step_percent=0.5",
+        "system.loss.lambda_lite_arap_reg=100.0", "system.freq.update_arap=1",
+    ]
+    config = os.path.join(CONFIG_DIR, "gs4d_motion.yaml")
+    trainers = [Trainer(load_config(config, overrides + [f"exp_root_dir={tmp_path / d.type}"]),
+                        device=d) for d in (torch.device("cpu"), cuda)]
+    init = trainers[0].system.init_state(0).gauss
+
+    def moved(t):
+        return t.to(cuda).clone() if isinstance(t, torch.Tensor) else t
+
+    trainers[0].state = SystemState(gauss=init)
+    trainers[1].state = SystemState(gauss=gf.GaussianState(
+        params=type(init.params)(**{k: moved(v) for k, v in init.params.as_dict().items()}),
+        adam=AdamState({k: moved(v) for k, v in init.adam.mu.items()},
+                       {k: moved(v) for k, v in init.adam.nu.items()}, init.adam.count),
+        alive=moved(init.alive), **{k: moved(getattr(init, k)) for k in gf.STAT_FIELDS}))
+    for t in trainers:
+        t.system.step_draws = lambda step: {"arap_t": 0.37}
+    native.reset_launches()
+    trainers[1].fit()
+    launches = dict(native.LAUNCHES)
+    trainers[0].fit()
+    assert all(launches[k] > 0 for k in RASTER_KERNELS), launches
+    assert launches["flash_attention_forward"] == 0
+    rows = [t.metrics_log for t in trainers]
+    assert len(rows[0]) == len(rows[1]) == 2
+    for row_p, row_c in zip(*rows):
+        assert "train/loss_lite_arap_reg" in row_c and "train/loss_ref_gs" in row_c
+        for k in (k for k in row_p if k.startswith("train/")):
+            assert np.isfinite(row_c[k])
+            assert row_c[k] == pytest.approx(row_p[k], rel=1e-3, abs=1e-6), k
+    lrs = trainers[0].system.geometry.lr_tree(0)
+    alive = trainers[0].state.gauss.alive
+    for k, want in trainers[0].state.gauss.params.as_dict().items():
+        if want.numel() == 0:  # features_rest at sh_degree 0
+            continue
+        got = getattr(trainers[1].state.gauss.params, k).cpu()
+        diff = (got - want).abs().reshape(want.shape[0], -1)[alive].amax(-1)
+        assert float((diff <= 0.02 * lrs[k]).float().mean()) >= 0.99, k

@@ -169,8 +169,8 @@ def test_checkpoint_written(trained):
 
 def test_port_imports_no_jax(tmp_path):
     """In a fresh interpreter, importing every port module (the diffusion
-    stack, K5's module, the eval and export modules and the image-to-3D
-    modules included) and training one CPU step through the launcher,
+    stack, K5's module, the eval and export modules, the image-to-3D and
+    the 4D modules included) and training one CPU step through the launcher,
     with the YAML's own stable-diffusion-guidance on a tiny random
     checkpoint directory, then
     the test renders and the export, leaves neither jax nor the JAX package
@@ -185,6 +185,10 @@ def test_port_imports_no_jax(tmp_path):
         "from threestudio_3dgs_tpu_torch.models import decimate, exporter, mesh_extract, ply_io\n"
         "from threestudio_3dgs_tpu_torch.ops import flash_attention, native\n"
         "from threestudio_3dgs_tpu_torch.utils import ckpt, profiling, saving\n"
+        "from threestudio_3dgs_tpu_torch.ops import arap, lie, spline, sugar_reg\n"
+        "from threestudio_3dgs_tpu_torch.models import deformation, gaussian_dynamic, spacetime\n"
+        "from threestudio_3dgs_tpu_torch.data import temporal_image\n"
+        "from threestudio_3dgs_tpu_torch.systems import gaussian_4dgen, sugar_static\n"
         "ucfg = unet.UNet2DConditionConfig(block_out_channels=(32, 64), "
         "attention_head_dim=(2, 4), down_block_types=('CrossAttnDownBlock2D', 'DownBlock2D'), "
         "up_block_types=('UpBlock2D', 'CrossAttnUpBlock2D'), norm_groups=8)\n"

@@ -7,19 +7,22 @@ use by ``ops/native.py``), each with a plain torch twin that CPU tensors
 take.  Importing the package imports neither JAX nor the JAX package and
 builds nothing.
 
-  ops/        math core, rasterizer (projection, binning, blend) and kernels
-  models/     fixed-capacity Gaussian field (with densify / prune), Adam,
-              state conversion, PLY I/O, mesh extraction and export
+  ops/        math core, rasterizer (projection, binning, blend) and kernels,
+              Lie-group and spline ops, ARAP, SuGaR's regularisers
+  models/     fixed-capacity Gaussian field (with densify / prune), the
+              spacetime field and its deformation network, Adam, state
+              conversion, PLY I/O, mesh extraction and export
   renderers/  diff-gaussian-rasterizer and its -advanced, -background,
-              -normal and -shading variants
+              -normal and -shading variants, and the spacetime renderer
   materials/  no-material and the point-light material
   backgrounds/ solid colour and the neural environment map
   guidance/   SDS math, the fake SDS guidance, Stable Diffusion, MVDream /
               ImageDream, the CLIP tokenizer and text encoder
   diffusion/  the UNet (multiview too) and VAE of the diffusion guidance
-  data/       random-camera sampler and the fixed eval circles
-  systems/    the text-to-3D and multi-view SDS training steps and their
-              eval renders
+  data/       random-camera sampler, the fixed eval circles, the single
+              image and the video frames
+  systems/    the text-to-3D, multi-view, image-to-3D and video-to-4D
+              training steps and their eval renders
   utils/      registry, config system, losses, checkpoints, image saving
 """
 

@@ -1,1 +1,1 @@
-from . import image, uncond  # noqa: F401
+from . import image, temporal_image, uncond  # noqa: F401

@@ -33,9 +33,12 @@ JAX package's stand-in embeddings, ``np.random.default_rng(0)`` normals x
     zero ``c_concat``; the renders are resized to ``cond_image_size`` and
     encoded by the VAE (differentiable) before the SDS.
 
-One deliberate difference: where ``image_encoder/`` exists but does not
+Deliberate differences: where ``image_encoder/`` exists but does not
 load, the port raises (the JAX package falls back on any exception), as
-the port's CLIP text encoder does; without the directory both behave alike."""
+the port's CLIP text encoder does; without the directory both behave
+alike.  A checkpoint file that loads but holds no ldm UNet raises too (the
+JAX package takes its analytic prior): a run never trains against the
+prior when it was given a checkpoint."""
 
 from __future__ import annotations
 
@@ -174,7 +177,8 @@ class _TemporalZero123Base(BaseGuidance):
 
         sd = load_torch_state_dict(path)
         if not is_ldm_state_dict(sd):
-            return
+            raise ValueError(f"{path}: not a CompVis/ldm Zero123 checkpoint (no "
+                             "model.diffusion_model.* UNet)")
         cc_w = cc_b = None
         if "cc_projection.weight" in sd:
             cc_w, cc_b = sd["cc_projection.weight"].T, sd["cc_projection.bias"]

@@ -3,10 +3,12 @@
 ``gaussian_state_from_numpy`` turns a JAX package ``GaussianState`` whose
 leaves were brought to the host (``jax.device_get``: numpy leaves) into the
 port's state; ``to_numpy`` is its inverse for comparisons.
+A JAX ``SpacetimeParams`` field becomes the port's ``SpacetimeParams``.
 ``extra_from_numpy`` does the same for a JAX ``SystemState``'s
-``extra_params`` and ``extra_opt`` (the neural background's MLP and its
-Adam moments), which the port cannot draw itself: the JAX package draws
-them from a JAX PRNG.  Only attribute access is used, so nothing of the JAX
+``extra_params`` and ``extra_opt`` (the neural background's MLP, the
+deformation network's nested tree, and their Adam moments, flattened to
+slash-joined names), which the port cannot draw itself: the JAX package
+draws them from a JAX PRNG.  Only attribute access is used, so nothing of the JAX
 package is imported here."""
 
 from __future__ import annotations
@@ -16,20 +18,26 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .gaussian_field import (
-    PARAM_FIELDS, STAT_FIELDS, GaussianParams, GaussianState,
-)
+from .gaussian_field import STAT_FIELDS, GaussianParams, GaussianState
 from .optim import AdamState
+from .spacetime import TEMPORAL_FIELDS, SpacetimeParams
 
 
-def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, f"{prefix}{k}/"))
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """A nested tree of dicts and lists -> {slash-joined path: leaf}, e.g. a
+    JAX deformation tree -> the port's ``grids/0/0``, ``trunk/0/w``, ..."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
         else:
-            out[f"{prefix}{k}"] = np.asarray(v)
+            out[f"{prefix}{k}"] = v
     return out
+
+
+def _flat(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    return {k: np.asarray(v) for k, v in flatten_tree(tree, prefix).items()}
 
 
 def extra_from_numpy(
@@ -45,7 +53,7 @@ def extra_from_numpy(
     def dev(a):
         return torch.as_tensor(np.array(a), dtype=torch.float32, device=device)
 
-    params = {group: {k: dev(v) for k, v in leaves.items()}
+    params = {group: {k: dev(v) for k, v in _flat(leaves).items()}
               for group, leaves in extra_params.items()}
     adam = AdamState(mu={k: dev(v) for k, v in _flat(extra_opt.mu).items()},
                      nu={k: dev(v) for k, v in _flat(extra_opt.nu).items()},
@@ -54,7 +62,8 @@ def extra_from_numpy(
 
 
 def _fields(tree: Any) -> Dict[str, np.ndarray]:
-    return {k: getattr(tree, k) for k in PARAM_FIELDS if getattr(tree, k, None) is not None}
+    return {k: getattr(tree, k) for k in SpacetimeParams.FIELDS
+            if getattr(tree, k, None) is not None}
 
 
 def gaussian_state_from_numpy(tree: Any, device="cuda") -> GaussianState:
@@ -71,8 +80,9 @@ def gaussian_state_from_numpy(tree: Any, device="cuda") -> GaussianState:
         count=int(np.asarray(tree.adam.count)),
     )
     stats = {k: dev(getattr(tree, k)) for k in STAT_FIELDS}
+    params_cls = SpacetimeParams if any(k in params for k in TEMPORAL_FIELDS) else GaussianParams
     return GaussianState(
-        params=GaussianParams(**params), adam=adam,
+        params=params_cls(**params), adam=adam,
         alive=dev(tree.alive, torch.bool), **stats,
     )
 

@@ -48,7 +48,11 @@ STAT_FIELDS = ("max_radii2d", "xyz_grad_accum", "denom")
 
 @dataclasses.dataclass
 class GaussianParams:
-    """Learnable per-Gaussian parameters, all (CAP, ...) float32."""
+    """Learnable per-Gaussian parameters, all (CAP, ...) float32.  A
+    subclass with more fields (the spacetime field's) names them all in
+    ``FIELDS``; the structural ops keep the subclass."""
+
+    FIELDS = PARAM_FIELDS
 
     xyz: torch.Tensor  # (CAP, 3)
     features_dc: torch.Tensor  # (CAP, 1, 3)
@@ -59,7 +63,7 @@ class GaussianParams:
     normal: Optional[torch.Tensor] = None  # (CAP, 3) if pred_normal
 
     def as_dict(self) -> Dict[str, torch.Tensor]:
-        return {k: getattr(self, k) for k in PARAM_FIELDS if getattr(self, k) is not None}
+        return {k: getattr(self, k) for k in self.FIELDS if getattr(self, k) is not None}
 
 
 @dataclasses.dataclass
@@ -308,7 +312,8 @@ def init_state(cfg: GaussianFieldConfig, seed: int = 0, device="cuda") -> Gaussi
         from ..utils.ckpt import load_checkpoint
 
         gauss = load_checkpoint(src, device)[0].gauss
-        params = GaussianParams(**{k: v.clone() for k, v in gauss.params.as_dict().items()})
+        params = dataclasses.replace(
+            gauss.params, **{k: v.clone() for k, v in gauss.params.as_dict().items()})
         return state_from_params(params, gauss.alive.clone())
     if kind in ("ply", "vertex_ply"):
         if not os.path.exists(src):
@@ -402,7 +407,7 @@ def _free_slot_targets(alive: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
 def _scatter_rows(params: GaussianParams, source: GaussianParams,
                   targets: torch.Tensor) -> GaussianParams:
     """Every field with row targets[i] set to source[i]; targets == CAP are
-    dropped.  Returns new tensors."""
+    dropped.  Returns new tensors in the params' own type."""
     keep = targets < targets.shape[0]
     rows = targets[keep]
     out = {}
@@ -410,7 +415,7 @@ def _scatter_rows(params: GaussianParams, source: GaussianParams,
         leaf = leaf.clone()
         leaf[rows] = getattr(source, k)[keep]
         out[k] = leaf
-    return GaussianParams(**out)
+    return dataclasses.replace(params, **out)
 
 
 def _reset_stats(state: GaussianState) -> GaussianState:
@@ -470,14 +475,16 @@ def cap_prune_op(state: GaussianState, max_num: int,
 @torch.no_grad()
 def densify_op(state: GaussianState, grad_threshold: float, split_thresh: float,
                sphere: bool = False, generator: Optional[torch.Generator] = None,
-               draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> GaussianState:
+               draws: Optional[Tuple[torch.Tensor, ...]] = None) -> GaussianState:
     """Clone + split as masked scatters, in the JAX package's order: clone
     first; the split is decided on the pre-clone rows; each split parent is
     replaced in place by child 1 and child 2 takes a free slot; the
-    children's scales shrink by 1 / (0.8 * 2).  The moments are zeroed at
-    the clone targets, the child-2 targets and the split parents.
-    ``draws``: the two (CAP, 3) standard normals of the split children in
-    place of the generator's."""
+    children's scales shrink by 1 / (0.8 * 2).  A field with a
+    ``trbf_center`` (the spacetime field) gives both children a new one,
+    uniform in [0, 1), drawn after the two normals.  The moments are zeroed
+    at the clone targets, the child-2 targets and the split parents.
+    ``draws``: the two (CAP, 3) standard normals of the split children (and
+    the (CAP, 1) uniforms of the trbf_center) in place of the generator's."""
     params = state.params
     cap = state.capacity
     grads = torch.where(state.denom > 0, state.xyz_grad_accum / state.denom,
@@ -495,10 +502,14 @@ def densify_op(state: GaussianState, grad_threshold: float, split_thresh: float,
     alive = state.alive | row_mask(ctarget, cap)
 
     # split: parent -> two resampled children, positions after the clone
+    trbf = getattr(params, "trbf_center", None)
     if draws is None:
         draws = tuple(torch.randn((cap, 3), generator=generator, device=generator.device)
                       for _ in range(2))
-    n1, n2 = (d.to(scal.device) for d in draws)
+        if trbf is not None:
+            draws += (torch.rand(trbf.shape, generator=generator, device=generator.device),)
+    n1, n2 = (d.to(scal.device) for d in draws[:2])
+    trbf_child = None if trbf is None else draws[2].to(scal.device)
     rot = quaternion.to_rotation_matrix(params.rotation)
     child1_xyz = params.xyz + torch.einsum("nij,nj->ni", rot, n1 * scal)
     child2_xyz = params.xyz + torch.einsum("nij,nj->ni", rot, n2 * scal)
@@ -506,15 +517,15 @@ def densify_op(state: GaussianState, grad_threshold: float, split_thresh: float,
 
     starget = _free_slot_targets(alive, split_mask)
     # child 2 first: it reads the parent rows before child 1 overwrites them
-    params = _scatter_rows(
-        params, dataclasses.replace(params, xyz=child2_xyz, scaling=child_scaling), starget)
+    child = dict(xyz=child2_xyz, scaling=child_scaling)
+    if trbf_child is not None:
+        child["trbf_center"] = trbf_child
+    params = _scatter_rows(params, dataclasses.replace(params, **child), starget)
     alive = alive | row_mask(starget, cap)
     smask = split_mask[:, None]
+    child["xyz"] = child1_xyz
     params = dataclasses.replace(
-        params,
-        xyz=torch.where(smask, child1_xyz, params.xyz),
-        scaling=torch.where(smask, child_scaling, params.scaling),
-    )
+        params, **{k: torch.where(smask, v, getattr(params, k)) for k, v in child.items()})
     # the new rows (clone targets, child-2 targets) and the split parents
     adam = zero_moments_where(clone_adam(state.adam), (alive & ~state.alive) | split_mask)
     return _reset_stats(dataclasses.replace(state, params=params, alive=alive, adam=adam))
@@ -529,9 +540,9 @@ class GaussianField:
 
     def __init__(self, cfg: Optional[GaussianFieldConfig] = None, device="cuda", **kwargs):
         if cfg is None:
-            cfg = GaussianFieldConfig(**kwargs)
+            cfg = self.Config(**kwargs)
         elif isinstance(cfg, dict):
-            cfg = parse_structured(GaussianFieldConfig, cfg)
+            cfg = parse_structured(self.Config, cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.active_sh_degree = cfg.sh_degree if source_kind(cfg) in WARM_STARTS else 0

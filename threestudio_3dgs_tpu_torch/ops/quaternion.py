@@ -1,7 +1,8 @@
 """Quaternion helpers in torch (wxyz convention, batched, differentiable).
 
-Port of the JAX package's ``ops/quaternion.py``: the two functions the SDS
-training path uses (normalisation and the rotation matrix)."""
+Port of the JAX package's ``ops/quaternion.py``: normalisation, the
+rotation matrix, and the Hamilton product, conjugate and vector rotation
+the Lie-group and spline ops use."""
 
 from __future__ import annotations
 
@@ -28,3 +29,27 @@ def to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
     ]
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b, both (..., 4) wxyz."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (..., 3) by unit quaternions q (..., 4)."""
+    qvec = q[..., 1:]
+    uv = torch.linalg.cross(qvec, v, dim=-1)
+    uuv = torch.linalg.cross(qvec, uv, dim=-1)
+    return v + 2.0 * (q[..., :1] * uv + uuv)

@@ -47,6 +47,11 @@ def rgb_to_sh(rgb):
     return (rgb - 0.5) / C0
 
 
+def sh_to_rgb(sh):
+    """DC coefficient -> mean colour."""
+    return sh * C0 + 0.5
+
+
 def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
     """Real SH basis values for unit directions (..., 3) -> (..., K)."""
     if not 0 <= degree <= 4:

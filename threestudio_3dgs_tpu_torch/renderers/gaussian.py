@@ -62,10 +62,13 @@ class RendererConfig:
 
 def _view_tensor(batch, key: str, i: int, device) -> Optional[torch.Tensor]:
     """View i of a batch entry (numpy or tensor) as an f32 tensor on
-    ``device``, or None when the batch has no such entry."""
+    ``device``, or None when the batch has no such entry.  An entry with
+    fewer rows than views gives its last row, as JAX's clamped indexing
+    does (the temporal data's single light position)."""
     if key not in batch:
         return None
-    return torch.as_tensor(batch[key][i], dtype=torch.float32, device=device)
+    entry = batch[key]
+    return torch.as_tensor(entry[min(i, len(entry) - 1)], dtype=torch.float32, device=device)
 
 
 class GaussianRendererBase:
@@ -77,6 +80,8 @@ class GaussianRendererBase:
     with_normal = False
     with_background = False
     with_shading = False
+    # evaluates the field at each view's timestamp / frame index
+    temporal = False
 
     def __init__(self, cfg=None, geometry=None, material=None, background=None, **kw):
         if cfg is None:
@@ -225,13 +230,25 @@ class GaussianRendererBase:
         ambient_ratio=None,
         shading: Optional[str] = None,
         draws: Optional[List[Dict[str, Any]]] = None,  # one dict per view
+        deformation_params=None,
+        knots=None,
     ) -> Dict[str, Any]:
+        """Every view of the batch; a temporal renderer also gets the
+        view's ``timestamp`` and ``frame_idx`` (None where the batch has
+        none), the deformation parameters and the spline knots."""
         c2w = batch["c2w"]
         bs = c2w.shape[0]
         height, width = int(batch["height"]), int(batch["width"])
         device = gauss.params.xyz.device
         per_view = []
         for i in range(bs):
+            temporal = {}
+            if self.temporal:
+                temporal = dict(
+                    timestamp=batch["timestamp"][i] if "timestamp" in batch else None,
+                    frame_idx=batch["frame_indices"][i] if "frame_indices" in batch else None,
+                    deformation_params=deformation_params, knots=knots,
+                )
             fovy = float(batch["fovy"][i])
             camera = cam_ops.camera_from_c2w(
                 c2w[i], fovy, fovy, height, width, znear=0.1, zfar=100.0, device=device
@@ -253,6 +270,7 @@ class GaussianRendererBase:
                     ambient_ratio=ambient_ratio,
                     shading=shading,
                     draws=None if draws is None else draws[i],
+                    **temporal,
                 )
             )
         return self._stack_views(per_view)

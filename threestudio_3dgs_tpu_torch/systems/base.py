@@ -29,6 +29,7 @@ import torch
 from ..models import gaussian_field as gf
 from ..models.optim import AdamState, adam_update, init_adam
 from ..utils.config import C, C_max, parse_structured
+from ..utils.loss import tv_loss
 from ..utils.registry import find
 from ..utils.saving import save_image_grid
 
@@ -137,6 +138,19 @@ class BaseGaussianSystem:
     def loss_lambda(self, sched, name: str) -> float:
         return sched["lambdas"].get(name, 0.0)
 
+    def tv_trio_losses(self, out, sched, logs, loss=None) -> torch.Tensor:
+        """The rgb / depth / normal total-variation regularisers under the
+        reference's lambda names, added to ``loss``."""
+        total = torch.zeros((), device=self.device) if loss is None else loss
+        for lam, key_name, log_name in (("lambda_rgb_tv", "comp_rgb", "rgb_tv"),
+                                        ("lambda_depth_tv", "comp_depth", "depth_tv"),
+                                        ("lambda_normal_tv", "comp_normal", "normal_tv")):
+            if self.has_loss(lam) and key_name in out:
+                v = tv_loss(out[key_name])
+                logs[f"train/loss_{log_name}"] = v
+                total = total + v * self.loss_lambda(sched, lam)
+        return total
+
     def has_loss(self, name: str) -> bool:
         """Could this lambda ever be > 0."""
         try:
@@ -199,7 +213,7 @@ class BaseGaussianSystem:
         }
         extra = {k: v.detach().requires_grad_(True)
                  for k, v in flatten_extra(state.extra_params).items()}
-        gs = dataclasses.replace(gauss, params=gf.GaussianParams(**leaves))
+        gs = dataclasses.replace(gauss, params=dataclasses.replace(gauss.params, **leaves))
         total, logs, outs, vs_dummy = self.forward_loss(gs, unflatten_extra(extra), batch, step,
                                                         sched, generator)
 

@@ -148,6 +148,7 @@ class Zero123System(BaseGaussianSystem):
             ambient_only=bool(sched.get("ambient_only", False)) if sched else False,
             color_clip=sched["color_clip"] if sched else 1e9,
             means2d_offset=vs_dummy, ambient_ratio=ambient_ratio, shading=shading,
+            deformation_params=extra_params.get("deformation") if extra_params else None,
         )
 
     # -- train step ---------------------------------------------------------------

@@ -50,6 +50,9 @@ class Trainer:
         self.device = torch.device(device)
         self.data = find(cfg.data_type)(cfg.data, seed=cfg.seed)
         self.system = find(cfg.system_type)(dict(cfg.system), device=self.device)
+        # a temporal system conditions its guidance on the video frames
+        if hasattr(self.system, "attach_video_frames") and hasattr(self.data, "rgbs"):
+            self.system.attach_video_frames(self.data.rgbs)
         self.max_steps = int(cfg.trainer.get("max_steps", 1000))
         self.val_interval = cfg.trainer.get("val_check_interval", None)
         self.log_every = int(cfg.trainer.get("log_every_n_steps", 10))

@@ -5,6 +5,11 @@ count, plus the step.  Keys are slash-joined field paths
 (``gauss/params/xyz``, ``gauss/adam/mu/xyz``, ``extra/params/background/w0``,
 ``extra/adam/mu/background/w0``, ...).
 
+A spacetime field's temporal parameters are saved under their own names
+(``gauss/params/motion``, ...) and a checkpoint that holds any of them
+loads as a spacetime field; the deformation network's parameters are
+extra parameters (``extra/params/deformation/grids/0/0``, ...).
+
 ``load_checkpoint`` reads the port's own files only.  A JAX package
 checkpoint stores its leaves by position beside a pickled JAX treedef,
 which cannot be read without JAX; ``models/convert.py`` carries a state
@@ -19,8 +24,9 @@ import numpy as np
 import torch
 
 from ..models.convert import to_numpy
-from ..models.gaussian_field import PARAM_FIELDS, STAT_FIELDS, GaussianParams, GaussianState
+from ..models.gaussian_field import STAT_FIELDS, GaussianParams, GaussianState
 from ..models.optim import AdamState
+from ..models.spacetime import TEMPORAL_FIELDS, SpacetimeParams
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -58,12 +64,17 @@ def load_checkpoint_arrays(path: str) -> Tuple[Dict[str, np.ndarray], int]:
 
 
 def _gauss_from_arrays(arrays: Dict[str, np.ndarray], device) -> GaussianState:
+    """The field of a checkpoint: a spacetime field where it has any
+    temporal parameter."""
+    temporal = any(f"gauss/params/{k}" in arrays for k in TEMPORAL_FIELDS)
+    params_cls = SpacetimeParams if temporal else GaussianParams
+
     def fields(prefix):
         return {k: torch.as_tensor(arrays[f"gauss/{prefix}{k}"], device=device)
-                for k in PARAM_FIELDS if f"gauss/{prefix}{k}" in arrays}  # normal is optional
+                for k in params_cls.FIELDS if f"gauss/{prefix}{k}" in arrays}  # optional ones
 
     return GaussianState(
-        params=GaussianParams(**fields("params/")),
+        params=params_cls(**fields("params/")),
         adam=AdamState(mu=fields("adam/mu/"), nu=fields("adam/nu/"),
                        count=int(arrays["gauss/adam/count"])),
         alive=torch.as_tensor(arrays["gauss/alive"], device=device),

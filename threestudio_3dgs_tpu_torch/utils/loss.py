@@ -10,3 +10,8 @@ def tv_loss(img: torch.Tensor) -> torch.Tensor:
     h_diff = img[:, 1:, :, :] - img[:, :-1, :, :]
     w_diff = img[:, :, 1:, :] - img[:, :, :-1, :]
     return torch.mean(h_diff**2) + torch.mean(w_diff**2)
+
+
+def psnr(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    mse = torch.mean((pred - target) ** 2)
+    return -10.0 * torch.log10(torch.clamp_min(mse, eps))

@@ -19,7 +19,11 @@ Profiles, with ``torch.profiler`` (CPU and CUDA activities), these windows:
     views, forward and backward);
   * with ``--config`` instead of the above: ``train_<config name>``, the
     training steps of that YAML with the given overrides (e.g. a guidance
-    or prompt-processor directory, the material's warm-up).
+    or prompt-processor directory, the material's warm-up); for the 4D
+    system (``gs4d*.yaml``) also its two substeps alone, each a forward
+    and backward on the step's shapes: ``<name>_zero123`` (the random
+    views' renders and the temporal Zero123 SDS) and ``<name>_ref`` (the
+    reference frames' renders and their losses).
 
 For each window it prints the wall time per iteration (host clock around
 work that ends in a synchronise, without and with the profiler), for the
@@ -35,6 +39,7 @@ It also holds the scenes, kernel inputs and card-against-CPU checks that
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -370,6 +375,31 @@ def sd_stages(trainer) -> Dict[str, Callable[[], object]]:
     }
 
 
+def substeps_4d(trainer, name: str) -> Dict[str, Callable[[], object]]:
+    """The 4D system's two substeps alone on the first batch's shapes, each
+    a forward and a backward to the field's parameters."""
+    system, state = trainer.system, trainer.state
+    batch = trainer.data.train_batch(0)
+    sched = system.sched_scalars(0)
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in state.gauss.params.as_dict().items()}
+    gs = dataclasses.replace(state.gauss, params=dataclasses.replace(state.gauss.params, **leaves))
+    inputs = list(leaves.values())
+
+    def zero123():
+        rcb = batch["random_camera"]
+        out = system.render_batch(gs, state.extra_params, rcb, gen, sched, True)
+        g = system.guidance(out["comp_rgb"], system.prompt_utils, rcb, generator=gen,
+                            sched=sched.get("guidance"))
+        torch.autograd.grad(g["loss_sds"], inputs, allow_unused=True)
+
+    def ref():
+        out = system.render_batch(gs, state.extra_params, batch, gen, sched, True)
+        torch.autograd.grad(system._ref_losses(out, batch, sched, {}), inputs, allow_unused=True)
+
+    return {f"{name}_zero123": zero123, f"{name}_ref": ref}
+
+
 def main(argv: List[str] = None) -> Dict[str, Dict]:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=3)
@@ -411,6 +441,9 @@ def main(argv: List[str] = None) -> Dict[str, Dict]:
         print(f"[profile] {name}: {json.dumps(results[name])}", flush=True)
         if name == "train_sd":
             windows.extend((stage, lambda f=f: f) for stage, f in sd_stages(fn.trainer).items())
+        if name.startswith("train_gs4d"):
+            windows.extend((stage, lambda f=f: f)
+                           for stage, f in substeps_4d(fn.trainer, name[len("train_"):]).items())
         del fn
         torch.cuda.empty_cache()
     return results
