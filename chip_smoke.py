@@ -118,7 +118,9 @@ Phases, each of which fails the run with a non-zero exit:
      random views a step at 256^2, 4096 points in a 651,024 capacity, the
      lite ARAP from step 4 with its k-NN refreshed every 4 steps) with its
      temporal-stable-zero123-guidance on the random Stable Zero123
-     checkpoint, counters zeroed just before: the bf16 denoiser built
+     checkpoint, counters zeroed just before (the reference frames kept at
+     256^2 past the milestone at step 5, as the JAX package keeps the
+     first size): the bf16 denoiser built
      through ``attach_video_frames``, K5 exactly 5 times a step at (320,
      1024, 40) and nowhere else, every loss finite (``loss_ref_gs`` and
      ``loss_lite_arap_reg`` logged each step), grad_norm > 0, motion and
@@ -130,13 +132,30 @@ Phases, each of which fails the run with a non-zero exit:
      regularisers), on the analytic prior; K1-K4 held and timed at a
      256^2 reference-frame view of the trained 4D field, K5 timed at
      (320, 1024, 40);
- 11. print the per-kernel JSON line (launches from the training runs, K6's
+ 11. SuGaR static, both stages, through ``launch.main`` with counters zeroed
+     just before each: ``train_sugar_gaussian``, 10 steps of
+     gs_to_sugar.yaml at its widths (the 128^2 reference view, 8 random
+     views at 256^2, 4096 points; ``sugar_prune_at`` brought forward to
+     step 8, with a threshold the 10-step field's opacities straddle, and
+     the opacity, density and SDF-normal regularisers every step) on the
+     analytic prior: K1/K2 at 4 channels only, every loss finite, rows
+     pruned, its checkpoint and 4 test renders; then
+     ``train_sugar_refine``, 10 steps of sugar_static_refine.yaml bound
+     through ``geometry_convert_from`` to that checkpoint (the mesh
+     extracted from the field, 6 Gaussians a face) at 512^2, B = 4: K1/K2
+     at 7 channels only (rgb, depth, face normals), every loss finite, the
+     mesh vertices moved, 4 test renders, the PLY of every bound Gaussian,
+     2 more steps with ``--resume``; K1-K4 held and timed at a 512^2
+     reference view of the refined field (C = 7);
+ 12. print the per-kernel JSON line (launches from the training runs, K6's
      from its checks, K5 at d = 40 from ``zero123_guidance`` and
      ``train_gs4d``; times at the main path's shapes, K6's at the bench
      scene; K1-K4 rows at the trained 512^2 view, at the MVDream view, at
      the zero123 YAML's 128^2 ref view (launches from ``train_zero123``)
      and at the 4D field's 256^2 reference-frame view (launches from
-     ``train_gs4d``'s 10 steps); one K5 row per shape and type;
+     ``train_gs4d``'s 10 steps), at the SuGaR field's 512^2 view (C = 7,
+     launches from ``train_sugar_refine``'s 10 steps); one K5 row per
+     shape and type;
      ``ms`` and ``library_ms`` wrapper times, ``device_ms`` and
      ``library_device_ms`` device times; K5's bound the largest of its
      bytes, its products and its exponentials on the SFU at the card's
@@ -201,6 +220,19 @@ GS4D_STEPS = 10
 GS4D_SHORT_STEPS = 4
 K5_GS4D_SHAPES = ((320, 1024, 40),)
 K5_GS4D_CHECKS = ((320, 1024, 40, "bfloat16", False), (320, 1024, 40, "bfloat16", True))
+# SuGaR static: the gaussian stage's 10 steps with its handoff prune at step
+# 8; the sugar stage's 10 at 512^2, B = 4, then 2 more from its checkpoint
+SUGAR_GAUSS_CONFIG = os.path.join(CONFIG_DIR, "gs_to_sugar.yaml")
+SUGAR_REFINE_CONFIG = os.path.join(CONFIG_DIR, "sugar_static_refine.yaml")
+SUGAR_STEPS = 10
+SUGAR_PRUNE_AT = 8
+# the YAML's 0.5 would prune every row of a 10-step field (initial opacity
+# 0.05): a threshold its trained opacities straddle
+SUGAR_PRUNE_THRESHOLD = 0.06
+# the mesh-bound field at 512^2 makes several million pairs a view, past the
+# renderers' default ceiling of 2^21 (where the JAX package, with the same
+# ceiling, drops the deepest): the sugar stage renders under 2^24
+SUGAR_MAX_PAIRS = 2**24
 # the synthetic tokenizer's merges come from these lines
 TOKENIZER_CORPUS = (
     "a hamburger, a DSLR photo of a delicious hamburger on a wooden plate. a zoomed out "
@@ -1374,8 +1406,12 @@ def train_gs4d(torch, native, ckpt):
     step_ms = [row["step_s"] * 1e3 for row in rows[1:]]
     n_params = sum(p.numel() for p in guidance.unet.parameters())
     rc = trainer.data.random_camera_cfg
+    if trainer.data.rgbs.shape[1:3] != (sizes[0], sizes[0]):
+        fail(f"train_gs4d: reference frames at {trainer.data.rgbs.shape[1:3]}, not the first "
+             f"size {sizes[0]}^2")
     log(f"train_gs4d: {GS4D_STEPS} steps of gs4d_motion.yaml ({trainer.cfg.data['num_frames']} "
-        f"frames, ref views at {sizes} from steps {trainer.data.resolution_milestones[1:]}, "
+        f"frames, ref views at {sizes[0]}^2 throughout, the first of {sizes}, past the "
+        f"milestone at step {trainer.data.resolution_milestones[1]}, as in the JAX package, "
         f"{rc.batch_size} random views at {rc.height}^2, capacity {gauss.capacity}, "
         f"{gauss.n_alive} alive; temporal-stable-zero123-guidance on the random checkpoint, "
         f"ZERO123_UNET {n_params / 1e9:.3f} B parameters in bf16, CFG batch "
@@ -1448,6 +1484,150 @@ def train_gs4d(torch, native, ckpt):
         torch.cuda.empty_cache()
     return launches, {shape: shape_launches[shape_tag(*shape)] for shape in K5_GS4D_SHAPES}, \
         ref_inp
+
+
+def sugar_view(torch, trainer, size=512):
+    """The reference view of the refined SuGaR field at ``size``^2: its
+    mesh-bound Gaussians, their SH colours from the camera and their face
+    normals as the extra channels (C = 7)."""
+    from threestudio_3dgs_tpu_torch.ops import camera as cam_mod
+    from threestudio_3dgs_tpu_torch.ops.rasterizer.preprocess import sh_colors
+
+    data, geo = trainer.data, trainer.system.geometry
+    fovy = float(data.fovy[0])
+    cam = cam_mod.camera_from_c2w(data.c2w[0], fovy, fovy, size, size)
+    with torch.no_grad():
+        a = geo.as_gaussian_arrays(trainer.state.gauss)
+        colors = sh_colors(a["means3d"], a["sh_coeffs"], cam.campos, geo.active_sh_degree)
+    return dict(means=a["means3d"], scales=a["scales"], quats=a["quats"], opac=a["opacities"],
+                colors=colors, extra=a["normals"], cam=cam, alive=None,
+                tile_size=trainer.system.renderer.cfg.tile_size)
+
+
+def sugar_run(torch, native, label, argv, keys, channels):
+    """One SuGaR stage through launch.main, counters zeroed just before:
+    every logged train/ value finite, ``keys`` logged each step, no pair
+    dropped, K1-K4 launched and K1/K2 at exactly ``channels`` channels.
+    Returns (trainer, launches, K1/K2 launches by channel count, wall s,
+    peak GiB)."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    trainer = launch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    by_c = {f"{fn}:{tag}": c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
+            if fn.startswith("blend_")}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(trainer.metrics_log) != SUGAR_STEPS:
+        fail(f"{label}: {len(trainer.metrics_log)} logged steps")
+    check_4d_rows(torch, trainer.metrics_log, label, keys)
+    missing = [k for k in RASTER_KERNELS if launches[k] == 0]
+    want = {f"blend_forward:C{channels}": launches["blend_forward"],
+            f"blend_backward:C{channels}": launches["blend_backward"]}
+    if missing or by_c != want:
+        fail(f"{label}: kernels never launched {missing}; K1/K2 by channel count {by_c}, "
+             f"want {want}")
+    return trainer, launches, by_c, wall, peak
+
+
+def train_sugar(torch, native):
+    """SuGaR static, both stages (phase 11).  Returns the sugar stage's
+    launches and K1-K4's inputs at a 512^2 view of its refined field."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.models.ply_io import read_ply_table
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
+
+    png = os.path.join(RUN_DIR, "reference_rgba.png")
+    gauss_keys = ("train/loss_opacity_binary", "train/loss_density_regulation",
+                  "train/loss_normal_regulation", "train/loss_zero123_sds")
+    argv = ["--config", SUGAR_GAUSS_CONFIG, "--train", f"trainer.max_steps={SUGAR_STEPS}",
+            "trainer.val_check_interval=0", f"data.image_path={png}",
+            "data.random_camera.n_test_views=4", "system.sugar.start_regularization_from=0",
+            "system.sugar.start_sdf_better_normal_from=0",
+            f"system.geometry.sugar_prune_at={SUGAR_PRUNE_AT}",
+            f"system.geometry.sugar_prune_threshold={SUGAR_PRUNE_THRESHOLD}",
+            f"exp_root_dir={os.path.join(RUN_DIR, 'sugar_gaussian')}"]
+    gt, g_launches, g_by_c, wall, peak = sugar_run(torch, native, "train_sugar_gaussian", argv,
+                                                   gauss_keys, 4)
+    nums = [row["gauss_num"] for row in gt.metrics_log]
+    if not 0 < gt.state.gauss.n_alive < nums[SUGAR_PRUNE_AT]:
+        fail(f"train_sugar_gaussian: {nums[SUGAR_PRUNE_AT]} -> {gt.state.gauss.n_alive} alive "
+             f"rows at the prune of step {SUGAR_PRUNE_AT}")
+    rand = gt.data.train_batch(SUGAR_STEPS)["random_camera"]
+    step_ms = [row["step_s"] * 1e3 for row in gt.metrics_log[1:]]
+    last = gt.metrics_log[-1]
+    log(f"train_sugar_gaussian: {SUGAR_STEPS} steps of gs_to_sugar.yaml (ref view "
+        f"{gt.data.height}^2, {len(rand['c2w'])} random views at {rand['height']}^2, capacity "
+        f"{gt.state.gauss.capacity}, stable-zero123-guidance's analytic prior): {wall:.2f} s wall "
+        f"incl. 4 test renders; median step (steps 2-{SUGAR_STEPS}) "
+        f"{statistics.median(step_ms):.1f} ms; peak device memory {peak:.2f} GiB; gauss_num "
+        f"{nums[0]} -> {gt.state.gauss.n_alive} after the prune at step {SUGAR_PRUNE_AT} "
+        f"(threshold {SUGAR_PRUNE_THRESHOLD}); last "
+        + ", ".join(f"{k.split('/')[-1]} {last[k]:.6g}" for k in gauss_keys)
+        + f"; launches {g_launches}, K1/K2 by channels {g_by_c}")
+    ckpt = os.path.join(gt.save_dir, "ckpts", "last.ckpt.npz")
+    del gt
+    torch.cuda.empty_cache()
+
+    refine_keys = ("train/loss_zero123_sds", "train/loss_ref_rgb",
+                   "train/loss_normal_consistency", "train/loss_laplacian_smoothing",
+                   "train/loss_tv")
+    common = [f"data.image_path={png}", "data.random_camera.n_test_views=4",
+              f"system.geometry_convert_from={ckpt}", "trainer.val_check_interval=0",
+              f"system.renderer.max_pairs={SUGAR_MAX_PAIRS}"]
+    argv = ["--config", SUGAR_REFINE_CONFIG, "--train", f"trainer.max_steps={SUGAR_STEPS}",
+            f"exp_root_dir={os.path.join(RUN_DIR, 'sugar_refine')}"] + common
+    st, launches, by_c, wall, peak = sugar_run(torch, native, "train_sugar_refine", argv,
+                                               refine_keys, 7)
+    sugar = st.state.gauss
+    init = st.system.init_state(st.cfg.seed).gauss
+    moved = float((sugar.params.points - init.params.points).abs().max())
+    if not moved > 0:
+        fail("train_sugar_refine: the mesh vertices did not move")
+    ply = os.path.join(st.save_dir, "save", "point_cloud.ply")
+    n_ply = len(read_ply_table(ply)["x"])
+    n_test = len(os.listdir(os.path.join(st.save_dir, "save", f"it{SUGAR_STEPS}-test")))
+    if n_ply != sugar.n_gaussians or n_test != 4:
+        fail(f"train_sugar_refine: {n_ply} PLY vertices for {sugar.n_gaussians} Gaussians, "
+             f"{n_test} test renders")
+    rc = st.data.random_camera_cfg
+    pairs = max(row["n_pairs_max"] for row in st.metrics_log)
+    step_ms = [row["step_s"] * 1e3 for row in st.metrics_log[1:]]
+    last = st.metrics_log[-1]
+    log(f"train_sugar_refine: {SUGAR_STEPS} steps of sugar_static_refine.yaml bound to the "
+        f"gaussian stage's checkpoint: {sugar.n_faces} faces, {sugar.params.points.shape[0]} "
+        f"vertices, {sugar.n_gaussians} Gaussians ({st.system.geometry.n_per_face} a face); ref "
+        f"view {st.data.height}^2, {rc.batch_size} random views at {rc.height}^2: {wall:.2f} s "
+        f"wall incl. binding and 4 test renders; median step (steps 2-{SUGAR_STEPS}) "
+        f"{statistics.median(step_ms):.1f} ms (min {min(step_ms):.1f}, max {max(step_ms):.1f}); "
+        f"peak device memory {peak:.2f} GiB; at most {pairs:.0f} pairs a view (ceiling "
+        f"{SUGAR_MAX_PAIRS}, 0 dropped); vertices moved up to {moved:.3g}; last "
+        + ", ".join(f"{k.split('/')[-1]} {last[k]:.6g}" for k in refine_keys)
+        + f"; {n_ply} PLY vertices; launches {launches}, K1/K2 by channels {by_c}")
+    inp = view_inputs(sugar_view(torch, st), seed=7, max_pairs=SUGAR_MAX_PAIRS)
+    ckpt_s = os.path.join(st.save_dir, "ckpts", "last.ckpt.npz")
+    del st
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resumed = launch.main(["--config", SUGAR_REFINE_CONFIG, "--train", "--resume", ckpt_s,
+                           f"trainer.max_steps={SUGAR_STEPS + 2}",
+                           f"exp_root_dir={os.path.join(RUN_DIR, 'sugar_resume')}"] + common)
+    if resumed.step != SUGAR_STEPS + 2 or len(resumed.metrics_log) != 2 or \
+            resumed.state.gauss.adam.count != SUGAR_STEPS + 2:
+        fail(f"train_sugar_refine --resume: step {resumed.step}, "
+             f"{len(resumed.metrics_log)} logged steps, Adam count {resumed.state.gauss.adam.count}")
+    check_4d_rows(torch, resumed.metrics_log, "train_sugar_refine --resume", refine_keys)
+    log(f"train_sugar_refine --resume {os.path.relpath(ckpt_s, ROOT)} -> 2 more steps, last "
+        f"loss_total {resumed.metrics_log[-1]['train/loss_total']:.6g}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    del resumed
+    torch.cuda.empty_cache()
+    return launches, inp
 
 
 def main():
@@ -1587,6 +1767,14 @@ def main():
     del gs4d_inp
     k5_gs4d_times = time_flash(torch, K5_GS4D_SHAPES, torch.bfloat16)
 
+    # SuGaR static: the gaussian stage (C = 4), then the sugar stage (C = 7)
+    sugar_launches, sugar_inp = train_sugar(torch, native)
+    sugar_errs = check_kernels(torch, sugar_inp, "sugar")
+    log("SuGaR reference-view timing (512^2, the refined field, C = 7; these go in the kernels "
+        "line):")
+    sugar_timing = time_kernels(torch, sugar_inp, "sugar")
+    del sugar_inp
+
     # (row name, kernel, launches, max abs error, timings): K1-K4 at the
     # trained view, the MVDream view, the zero123 ref view and the 4D
     # reference-frame view, K5 once per main-path shape
@@ -1611,6 +1799,8 @@ def main():
     rows += [(f"flash_attention_forward@{bh}x{n}x{d}", "flash_attention_forward",
               gs4d_k5[(bh, n, d)], k5_errs[(bh, n, d, "bfloat16")], k5_gs4d_times[(bh, n, d)])
              for bh, n, d in K5_GS4D_SHAPES]
+    rows += [(f"{name}@sugar", name, sugar_launches[name], sugar_errs[name], sugar_timing[name])
+             for name in raster]
     # K6 is on no training path: its launches are its checks', its time the
     # bench scene's
     rows.append(("expand_slots", "expand_slots", k6_launches, k6_err, k6_time))

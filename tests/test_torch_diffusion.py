@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_train  # noqa: F401  (its import shares the CPU's cores: share_cpu_threads)
+
 from test_checkpoint_formats import diffusers_unet_manifest, diffusers_vae_encoder_manifest
 from test_diffusion import TINY_MV_UNET, TINY_UNET, TINY_VAE
 

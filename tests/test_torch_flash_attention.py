@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_train  # noqa: F401  (its import shares the CPU's cores: share_cpu_threads)
+
 from threestudio_3dgs_tpu.ops.flash_attention import _flash_bhnd
 from threestudio_3dgs_tpu.ops.flash_attention import attention_reference as jax_reference
 

@@ -288,6 +288,50 @@ def test_blend_kernels_unit_cases(cuda, ts, case):
     check_blend_kernels(*blend_case(case, ts, cuda))
 
 
+def with_channels(pf, g_out, dims, c, seed=0):
+    """The same pairs with C = c channels: rgb alone at 3 (the depth column
+    dropped), rgb + depth + c - 4 random extra channels above 4 (SuGaR's
+    face normals at 7), and a cotangent of c + 1 channels."""
+    gx, gy, ts, _ = dims
+    gen = torch.Generator(device=pf.device).manual_seed(seed + c)
+    if c == 3:
+        pf = pf[:, :9]
+    else:
+        extra = torch.rand((pf.shape[0], c - 4), generator=gen, device=pf.device) * 2.0 - 1.0
+        pf = torch.cat([pf[:, :10], extra], dim=1)
+    g_out = torch.randn((gx * gy, ts * ts, c + 1), generator=gen, device=pf.device)
+    return pf.contiguous(), g_out, (gx, gy, ts, c)
+
+
+@pytest.mark.parametrize("case", ("scene",) + BLEND_CASES)
+@pytest.mark.parametrize("ts", [16, 32])
+@pytest.mark.parametrize("c", [3, 7, 8])
+@torch.no_grad()
+def test_blend_kernels_channel_counts(cuda, c, ts, case):
+    """K1/K2 at 3, 7 and 8 channels (kF = 9, 13, 14 floats a pair row; K2's
+    reduce-scatter groups of 3, 2 and 2 pairs) against their plain
+    versions at the two scenes and the work-unit cases, with bitwise
+    reruns, each launch counted under its channel count."""
+    if case == "scene":
+        _, bins, pf, g_out, dims = kernel_inputs(make_scene(cuda), ts)
+        ranges = bins.tile_ranges
+    else:
+        pf, ranges, g_out, dims = blend_case(case, ts, cuda)
+    pf, g_out, dims = with_channels(pf, g_out, dims, c)
+    native.reset_launches()
+    check_blend_kernels(pf, ranges, g_out, dims)
+    assert native.SHAPE_LAUNCHES == {("blend_forward", f"C{c}"): 2,
+                                     ("blend_backward", f"C{c}"): 2}
+
+
+def test_blend_kernels_refuse_other_channel_counts(cuda):
+    pf = torch.zeros((4, 15), device=cuda)
+    ranges = torch.zeros(5, dtype=torch.int64, device=cuda)
+    for c in (2, 9):
+        with pytest.raises(ValueError, match="3 to 8 channels"):
+            blend.blend_forward_cuda(pf[:, :6 + c], ranges, 2, 2, 16, c)
+
+
 @torch.no_grad()
 def test_segsum_kernel_matches_plain(cuda):
     _, bins, pf, g_out, dims = kernel_inputs(make_scene(cuda), 16)
@@ -866,3 +910,109 @@ def test_gs4d_steps_on_card_match_cpu(cuda, tmp_path):
         got = getattr(trainers[1].state.gauss.params, k).cpu()
         diff = (got - want).abs().reshape(want.shape[0], -1)[alive].amax(-1)
         assert float((diff <= 0.02 * lrs[k]).float().mean()) >= 0.99, k
+
+
+def test_sugar_step_on_card_matches_cpu(cuda, tmp_path):
+    """Two steps of sugar_static_refine.yaml's stage "sugar" bound to a
+    320-face icosphere (6 Gaussians a face, the SuGaR renderer at 7
+    channels) on the card and on the CPU, at 64^2: the losses to 1e-3
+    relative, 99% of each param's rows within 2% of its learning rate (the
+    in-plane rotation through the covariance it gives: its two tangent
+    scales start equal), K1/K2 launched at 7 channels only."""
+    from threestudio_3dgs_tpu_torch.models.sugar import SuGaRParams, SuGaRState
+    from threestudio_3dgs_tpu_torch.models.optim import AdamState
+    from threestudio_3dgs_tpu_torch.ops.gaussian_math import covariance_from_scaling_rotation
+    from threestudio_3dgs_tpu_torch.ops.mesh import icosphere
+    from threestudio_3dgs_tpu_torch.systems.base import SystemState
+    from threestudio_3dgs_tpu_torch.trainer import Trainer
+    from threestudio_3dgs_tpu_torch.utils.config import load_config
+
+    overrides = [
+        "trainer.max_steps=2", "trainer.val_check_interval=0", "trainer.log_every_n_steps=1",
+        "data.image_path=", "data.height=64", "data.width=64", "data.random_camera.height=64",
+        "data.random_camera.width=64", "data.random_camera.batch_size=1",
+        "system.renderer.tile_size=16", "system.guidance.min_step_percent=0.5",
+        "system.guidance.max_step_percent=0.5",
+    ]
+    config = os.path.join(CONFIG_DIR, "sugar_static_refine.yaml")
+    trainers = [Trainer(load_config(config, overrides + [f"exp_root_dir={tmp_path / d.type}"]),
+                        device=d) for d in (torch.device("cpu"), cuda)]
+    verts, faces = icosphere()
+    for t in trainers:
+        t.system.bind_mesh(verts, faces)
+    init = trainers[0].system.init_state(0).gauss
+
+    def moved(t):
+        return t.to(cuda).clone()
+
+    trainers[0].state = SystemState(gauss=init)
+    trainers[1].state = SystemState(gauss=SuGaRState(
+        params=SuGaRParams(**{k: moved(v) for k, v in init.params.as_dict().items()}),
+        adam=AdamState({k: moved(v) for k, v in init.adam.mu.items()},
+                       {k: moved(v) for k, v in init.adam.nu.items()}, init.adam.count),
+        faces=moved(init.faces), bary=moved(init.bary), thickness=moved(init.thickness)))
+    native.reset_launches()
+    trainers[1].fit()
+    by_c = dict(native.SHAPE_LAUNCHES)
+    launches = dict(native.LAUNCHES)
+    trainers[0].fit()
+    assert all(launches[k] > 0 for k in RASTER_KERNELS), launches
+    assert set(by_c) == {("blend_forward", "C7"), ("blend_backward", "C7")}, by_c
+    rows = [t.metrics_log for t in trainers]
+    assert len(rows[0]) == len(rows[1]) == 2
+    for row_p, row_c in zip(*rows):
+        assert "train/loss_normal_consistency" in row_c and row_c["n_faces"] == 320
+        for k in (k for k in row_p if k.startswith("train/")):
+            assert np.isfinite(row_c[k])
+            assert row_c[k] == pytest.approx(row_p[k], rel=1e-3, abs=1e-6), k
+    lrs = trainers[0].system.geometry.lr_tree(0)
+    states = [t.state.gauss for t in trainers]
+    for k in ("points", "sh_dc", "scales", "densities"):
+        want = getattr(states[0].params, k)
+        diff = (getattr(states[1].params, k).cpu() - want).abs().reshape(want.shape[0], -1)
+        assert float((diff.amax(-1) <= 0.02 * lrs[k]).float().mean()) >= 0.99, k
+    geo = trainers[0].system.geometry
+
+    def covs(state):
+        a = geo.as_gaussian_arrays(dataclasses.replace(
+            state, params=SuGaRParams(**{k: v.cpu() for k, v in state.params.as_dict().items()}),
+            faces=state.faces.cpu(), bary=state.bary.cpu(), thickness=state.thickness.cpu()))
+        return covariance_from_scaling_rotation(a["scales"], a["quats"])
+
+    want = covs(states[0])
+    assert float((covs(states[1]) - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_sugar_zero123_yamls_on_card(cuda, tmp_path):
+    """gs_to_sugar_zero123.yaml for 2 steps through the launcher on the
+    card, then sugar_static_refine_zero123.yaml (normal-depth consistency
+    on) bound to its checkpoint for 2 steps, at 64^2: finite losses, no
+    dropped pairs, K1/K2 at 4 channels in the first and 7 in the second,
+    the PLY of every bound Gaussian."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.models.ply_io import read_ply_table
+
+    small = ["trainer.max_steps=2", "trainer.val_check_interval=0", "data.image_path=",
+             "data.height=64", "data.width=64", "data.random_camera.height=64",
+             "data.random_camera.width=64", "data.random_camera.batch_size=2",
+             "data.random_camera.eval_height=64", "data.random_camera.eval_width=64",
+             "data.random_camera.n_test_views=1", "system.renderer.max_pairs=16777216"]
+    runs = {}
+    for name, channels in (("gs_to_sugar_zero123", 4), ("sugar_static_refine_zero123", 7)):
+        extra = []
+        if channels == 7:
+            extra = [f"system.geometry_convert_from={runs['gs_to_sugar_zero123']}"]
+        native.reset_launches()
+        t = launch.main(["--config", os.path.join(CONFIG_DIR, f"{name}.yaml"), "--train",
+                         f"exp_root_dir={tmp_path / name}"] + small + extra)
+        torch.cuda.synchronize()
+        assert set(native.SHAPE_LAUNCHES) == {("blend_forward", f"C{channels}"),
+                                              ("blend_backward", f"C{channels}")}
+        assert len(t.metrics_log) == 2
+        for row in t.metrics_log:
+            assert row["n_dropped_pairs"] == 0
+            assert all(np.isfinite(v) for k, v in row.items() if k.startswith("train/"))
+        runs[name] = os.path.join(t.save_dir, "ckpts", "last.ckpt.npz")
+    assert "train/loss_normal_depth_consistency" in t.metrics_log[-1]
+    ply = read_ply_table(os.path.join(t.save_dir, "save", "point_cloud.ply"))
+    assert len(ply["x"]) == t.state.gauss.n_gaussians > 0

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_train  # noqa: F401  (its import shares the CPU's cores: share_cpu_threads)
+
 from test_diffusion import TINY_UNET, TINY_VAE
 from test_torch_diffusion import JAX_ONLY_FIELDS
 

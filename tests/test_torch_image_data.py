@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import test_torch_train  # noqa: F401  (its import shares the CPU's cores: share_cpu_threads)
+
 from threestudio_3dgs_tpu.data import image as jimage
 
 from threestudio_3dgs_tpu_torch.data import image as pimage

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_train  # noqa: F401  (its import shares the CPU's cores: share_cpu_threads)
+
 from threestudio_3dgs_tpu.models import gaussian_field as jgf
 from threestudio_3dgs_tpu.models import ply_io as jply
 from threestudio_3dgs_tpu.utils.ckpt import save_checkpoint as jax_save_checkpoint

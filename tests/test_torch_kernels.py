@@ -13,6 +13,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import test_torch_train  # noqa: F401  (its import shares the CPU's cores: share_cpu_threads)
+
 from test_expand_pallas import random_case
 from test_rasterizer import make_scene
 from test_torch_gpu import (

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_train  # noqa: F401  (its import shares the CPU's cores: share_cpu_threads)
+
 transformers = pytest.importorskip("transformers")
 
 from threestudio_3dgs_tpu.guidance import base as jbase  # noqa: E402

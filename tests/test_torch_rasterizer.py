@@ -8,6 +8,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import test_torch_train  # noqa: F401  (its import shares the CPU's cores: share_cpu_threads)
+
 from test_rasterizer import lookat_c2w, make_scene
 
 from threestudio_3dgs_tpu.models import gaussian_field as jgf

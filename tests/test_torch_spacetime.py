@@ -484,6 +484,20 @@ def write_frames(root, n=5, size=40):
         Image.fromarray(rgba, "RGBA").save(root / name)
 
 
+def assert_same_batch(got, want, where):
+    """Equal keys; nested dicts recursively; ints, strings and None
+    exactly, arrays to 1e-6."""
+    assert sorted(got) == sorted(want), where
+    for k, w in want.items():
+        if isinstance(w, dict):
+            assert_same_batch(got[k], w, f"{where}/{k}")
+        elif w is None or isinstance(w, (int, str)):
+            assert got[k] == w, f"{where}/{k}"
+        else:
+            np.testing.assert_allclose(np.asarray(got[k]), np.asarray(w), rtol=0, atol=1e-6,
+                                       err_msg=f"{where}/{k}")
+
+
 @pytest.mark.parametrize("source", ["synthetic", "frames"])
 def test_temporal_batches_match_jax(source, tmp_path):
     """Three training batches of one seed (the frame subset, the frames,
@@ -497,38 +511,28 @@ def test_temporal_batches_match_jax(source, tmp_path):
     jd = jtd.TemporalImageDataModule(jcfg, seed=3)
     pd = ptd.TemporalImageDataModule(pcfg, seed=3)
     np.testing.assert_allclose(pd.rgbs, jd.rgbs, rtol=0, atol=1e-6)
-
-    def assert_same(got, want, where):
-        assert sorted(got) == sorted(want), where
-        for k, w in want.items():
-            if isinstance(w, dict):
-                assert_same(got[k], w, f"{where}/{k}")
-            elif w is None or isinstance(w, (int, str)):
-                assert got[k] == w, f"{where}/{k}"
-            else:
-                np.testing.assert_allclose(np.asarray(got[k]), np.asarray(w), rtol=0, atol=1e-6,
-                                           err_msg=f"{where}/{k}")
-
     for step in range(3):
         jb, pb = jd.train_batch(step), pd.train_batch(step)
         assert pb["rgb"].shape == (3, 32, 32, 3) and pb["random_camera"]["c2w"].shape[0] == 6
-        assert_same(pb, jb, f"step {step}")
+        assert_same_batch(pb, jb, f"step {step}")
     for split in ("val_views", "test_views"):
         for jv, pv in zip(getattr(jd, split)(), getattr(pd, split)()):
-            assert_same(pv, jv, split)
+            assert_same_batch(pv, jv, split)
 
 
 def test_temporal_resolution_milestones():
-    """A difference by design: the port's temporal module takes its next
-    size at a milestone (the JAX module keeps the first); the frames, rays
-    and cameras follow it."""
-    _, pcfg = temporal_data_cfg()
-    pcfg = dict(pcfg, height=[16, 32], width=[16, 32], resolution_milestones=[2])
-    pd = ptd.TemporalImageDataModule(pcfg, seed=0)
-    assert pd.train_batch(1)["rgb"].shape[1:3] == (16, 16)
-    b = pd.train_batch(2)
-    assert b["rgb"].shape[1:3] == (32, 32) and b["rays_d"].shape[1:3] == (32, 32)
-    assert (b["height"], b["width"]) == (32, 32)
+    """Both packages keep the first size for the whole run: the batches on
+    either side of a resolution milestone (its frames, rays and cameras)
+    are equal and at the first size."""
+    jcfg, pcfg = temporal_data_cfg()
+    sizes = dict(height=[16, 32], width=[16, 32], resolution_milestones=[2])
+    jd = jtd.TemporalImageDataModule(dict(jcfg, **sizes), seed=0)
+    pd = ptd.TemporalImageDataModule(dict(pcfg, **sizes), seed=0)
+    for step in (1, 2, 3):
+        jb, pb = jd.train_batch(step), pd.train_batch(step)
+        assert pb["rgb"].shape[1:3] == (16, 16) and pb["rays_d"].shape[1:3] == (16, 16)
+        assert (pb["height"], pb["width"]) == (16, 16)
+        assert_same_batch(pb, jb, f"step {step}")
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,22 @@ from threestudio_3dgs_tpu_torch.systems.base import SystemState
 from threestudio_3dgs_tpu_torch.trainer import Trainer
 from threestudio_3dgs_tpu_torch.utils.config import load_config
 
+
+
+def share_cpu_threads() -> int:
+    """Gives this process's torch an equal share of the CPU's cores: one
+    intra-op thread per core and pytest-xdist worker (all the cores when
+    the tests run in one process).  Each worker running torch's default
+    pool, one thread per core, oversubscribes the CPU, and the plain
+    twins' elementwise ops then take several times their time alone."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    threads = max(1, (os.cpu_count() or 1) // max(workers, 1))
+    torch.set_num_threads(threads)
+    return threads
+
+
+share_cpu_threads()
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 JAX_CONFIG = os.path.join(ROOT, "threestudio_3dgs_tpu", "configs", "gaussian_splatting.yaml")
 PORT_CONFIG = os.path.join(ROOT, "threestudio_3dgs_tpu_torch", "configs", "gaussian_splatting.yaml")

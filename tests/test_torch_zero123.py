@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_train  # noqa: F401  (its import shares the CPU's cores: share_cpu_threads)
+
 from test_torch_diffusion import JAX_ONLY_FIELDS
 from test_torch_guidance import nchw, rel_l2
 from test_torch_mvdream import jax_draws

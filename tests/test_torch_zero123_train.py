@@ -198,7 +198,7 @@ def test_launcher_entry_points(tmp_path):
     from threestudio_3dgs_tpu_torch import launch
 
     config = f"{ROOT}/threestudio_3dgs_tpu_torch/configs/gaussian_splatting_zero123.yaml"
-    small = [f"exp_root_dir={tmp_path}", f"data.image_path={write_reference(tmp_path)}",
+    small = [f"data.image_path={write_reference(tmp_path)}",
              "data.height=32", "data.width=32",
              "data.random_camera.height=32", "data.random_camera.width=32",
              "data.random_camera.batch_size=1", "data.random_camera.eval_height=32",
@@ -207,9 +207,13 @@ def test_launcher_entry_points(tmp_path):
              "system.geometry.capacity=512", "system.renderer.tile_size=16",
              "system.exporter.resolution=32", "trainer.val_check_interval=0"]
 
+    runs = iter("abcd")
+
     def run(*args):
+        # each launch under its own root: two launches within one second
+        # share a trial directory (its name carries the time to the second)
         return launch.main(["--config", config, "--device", "cpu"] + list(args[:-1]) + small
-                           + args[-1])
+                           + [f"exp_root_dir={tmp_path / next(runs)}"] + args[-1])
 
     trained = run("--train", ["trainer.max_steps=2"])
     ckpt = f"{trained.save_dir}/ckpts/last.ckpt.npz"

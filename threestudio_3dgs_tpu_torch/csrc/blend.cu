@@ -17,8 +17,9 @@
 // ones fill in behind them.  Each warp owns an 8 x 4 patch of the unit, so
 // its lanes stop at about the same pair.
 //
-// Pair rows (F = 10 floats, 40 B) are staged 32 at a time into shared
-// memory with cp.async, double buffered, so batch b + 1 lands while batch
+// Pair rows (F = 6 + C floats: 40 B at C = 4, 52 B at C = 7; the copies
+// are 4-byte, so any F keeps them aligned) are staged 32 at a time into
+// shared memory with cp.async, double buffered, so batch b + 1 lands while batch
 // b is evaluated.  In K1 every warp stages its own batches and leaves as
 // soon as its 32 pixels have stopped: K1 has no block barrier at all.  In
 // K2 the unit stages together and leaves when all its pixels have stopped.
@@ -33,24 +34,29 @@
 // exactly the forward's stop decisions whatever the compiler contracts
 // elsewhere.
 //
-// K2's reduction.  A pair's 10 gradient terms are summed over the unit's
-// pixels: per warp, the terms of 3 walked pairs (30 values, padded to 32)
-// are reduce-scattered in 5 halving shuffle steps (31 shuffles per 3
-// pairs; lane l ends with the warp's sum of value l), skipped when no lane
-// of the warp took part; the 8 warps' sums are then added in warp order.
+// K2's reduction.  A pair's F gradient terms are summed over the unit's
+// pixels: per warp, the terms of kGroup = 32 / F walked pairs (3 pairs at
+// C = 3, 4: 27 or 30 values; 2 at C = 5..8: 22-28 values; padded to 32)
+// are reduce-scattered in 5 halving shuffle steps (31 shuffles per group;
+// lane l ends with the warp's sum of value l), skipped when no lane of the
+// warp took part; the 8 warps' sums are then added in warp order.
 // A tile of several units is summed across units without float atomics:
 // each unit writes its rows [start, stop) to its own slice of a scratch
 // buffer (U, P, F), and the tile's last unit to finish (an integer arrival
 // counter and __threadfence) adds the slices in unit order.  Every sum has
 // a fixed order, so reruns are bitwise identical.
 //
+// Channels.  C, the blended channels, is a template parameter: C = 4 (rgb
+// + view depth) on the Gaussian renderers, 7 (+ face normals) on SuGaR's,
+// 3 without depth; every C from 3 to 8 is built.
+//
 // Bound on the H100: neither bytes nor FLOPs.  K1 issues about 40
 // instructions per (pixel, pair) evaluation on the CUDA cores and is
 // latency bound in its heaviest warps (one dependent transmittance chain
 // per pixel, hundreds of pairs long); K2 adds the gradient terms (about
-// 80 instructions an evaluation) and 31 shuffles per 3 pairs per warp.
-// The culling cuts the evaluations, the units and the order cut the
-// imbalance across SMs.
+// 80 instructions an evaluation) and 31 shuffles per group of 3 (C <= 4)
+// or 2 pairs per warp.  The culling cuts the evaluations, the units and
+// the order cut the imbalance across SMs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,8 +66,8 @@ namespace {
 constexpr float kAlphaMin = 0.003921568859368563f;  // float32(1 / 255)
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
-constexpr int kChannels = 4;            // blended channels built: rgb + view depth
-constexpr int kF = 6 + kChannels;       // floats per pair row
+constexpr int kMinChannels = 3;         // blended channels built: 3 .. 8
+constexpr int kMaxChannels = 8;
 constexpr int kFwdUnit = 8;             // a K1 work unit is kFwdUnit^2 pixels
 constexpr int kBwdUnit = 16;            // a K2 work unit is kBwdUnit^2 pixels
 constexpr int kFwdThreads = kFwdUnit * kFwdUnit;  // one thread per pixel
@@ -71,12 +77,9 @@ constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kBatch = 32;              // pairs staged at a time: one per lane
 constexpr int kFwdUnroll = 4;           // pair evaluations a K1 thread issues together
 constexpr int kFwdStages = 2;           // batches a K1 warp has in flight or staged
-constexpr int kGroup = 3;               // pairs per K2 reduce-scatter (3 F <= 32)
 constexpr int kOrderThreads = 256;
 constexpr int kOrderTiles = 64;         // tiles an order block ranks
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kGroup * kF <= 32, "a reduce-scatter group must fit one warp");
-static_assert(kGroup == 3, "K2 names the rows of three slots");
 
 struct PairEval {
   float dx, dy, gauss, alpha_raw, alpha;
@@ -113,7 +116,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Threads id, id + count, ... copy the rows [b0, min(b0 + kBatch, end)).
+// Threads id, id + count, ... copy the rows [b0, min(b0 + kBatch, end)) of
+// kF floats.
+template <int kF>
 __device__ __forceinline__ void stage_rows(float* dst, const float* feats, long long b0,
                                            long long end, int id, int count) {
   const int n = (int)min((long long)kBatch, end - b0) * kF;
@@ -159,8 +164,10 @@ __device__ __forceinline__ bool pair_reaches(const float* f, float x0, float y0,
   return ex * ex * det <= r2 * c && ey * ey * det <= r2 * a;
 }
 
-// Bit j of the result: pair j of the staged batch (rows, nb pairs) may
-// reach this warp's 8 x 4 patch, whose pixel (px, py) is this lane's.
+// Bit j of the result: pair j of the staged batch (rows of kF floats, nb
+// pairs) may reach this warp's 8 x 4 patch, whose pixel (px, py) is this
+// lane's.
+template <int kF>
 __device__ __forceinline__ unsigned patch_pairs(const float* rows, int nb, float px, float py) {
   const int lane = threadIdx.x & 31;
   const float x0 = px - (float)(lane & 7), y0 = py - (float)(lane >> 3);
@@ -213,10 +220,12 @@ __global__ void __launch_bounds__(kOrderThreads) blend_order_kernel(
   }
 }
 
+template <int kChannels>
 __global__ void __launch_bounds__(kFwdThreads, 12) blend_fwd_kernel(
     const float* __restrict__ feats, const long long* __restrict__ ranges,
     const int* __restrict__ order, float* __restrict__ out, int units_per_tile, int grid_x,
     int ts) {
+  constexpr int kF = 6 + kChannels;  // floats per pair row
   __shared__ __align__(16) float s_rows[kFwdWarps][kFwdStages][kBatch * kF];
   const int tile = order[blockIdx.x / units_per_tile];
   const int sub = blockIdx.x % units_per_tile;
@@ -237,7 +246,7 @@ __global__ void __launch_bounds__(kFwdThreads, 12) blend_fwd_kernel(
 #pragma unroll
   for (int i = 0; i < kFwdStages - 1; ++i) {
     const long long b = start + (long long)i * kBatch;
-    if (b < end) stage_rows(s_rows[warp][i], feats, b, end, lane, 32);
+    if (b < end) stage_rows<kF>(s_rows[warp][i], feats, b, end, lane, 32);
     cp_async_commit();
   }
   int slot = 0;
@@ -247,13 +256,13 @@ __global__ void __launch_bounds__(kFwdThreads, 12) blend_fwd_kernel(
     // iteration
     const long long ahead = b0 + (long long)(kFwdStages - 1) * kBatch;
     if (ahead < end)
-      stage_rows(s_rows[warp][(slot + kFwdStages - 1) % kFwdStages], feats, ahead, end, lane,
-                 32);
+      stage_rows<kF>(s_rows[warp][(slot + kFwdStages - 1) % kFwdStages], feats, ahead, end,
+                     lane, 32);
     cp_async_commit();
     cp_async_wait<kFwdStages - 1>();
     __syncwarp();
     const float* rows = s_rows[warp][slot];
-    unsigned todo = patch_pairs(rows, (int)min((long long)kBatch, end - b0), px, py);
+    unsigned todo = patch_pairs<kF>(rows, (int)min((long long)kBatch, end - b0), px, py);
     while (todo) {
       // the pairs' evaluations do not depend on the transmittance: issue
       // kFwdUnroll of them together, then walk T through them in order
@@ -313,12 +322,17 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[32], int lane) {
 
 // partial (U, P, F), stops (T, U) and arrive (T,) are used only when a tile
 // has more than one unit (U > 1); with U = 1 the unit writes d_feats.
+template <int kChannels>
 __global__ void __launch_bounds__(kBwdThreads, 2) blend_bwd_kernel(
     const float* __restrict__ feats, const long long* __restrict__ ranges,
     const int* __restrict__ order, const float* __restrict__ out,
     const float* __restrict__ g_out, float* __restrict__ d_feats, float* __restrict__ partial,
     long long* __restrict__ stops, int* __restrict__ arrive, long long n_pairs,
     int units_per_tile, int grid_x, int ts) {
+  constexpr int kF = 6 + kChannels;  // floats per pair row
+  constexpr int kGroup = 32 / kF;    // pairs per reduce-scatter: 3 at C <= 4, else 2
+  static_assert((kGroup == 2 || kGroup == 3) && kGroup * kF <= 32,
+                "a reduce-scatter group of 2 or 3 pairs must fit one warp");
   __shared__ __align__(16) float s_rows[2][kBatch * kF];
   __shared__ float s_part[kBwdWarps][kBatch * kF];  // per warp: its sum of each row
   __shared__ int s_last;
@@ -343,14 +357,14 @@ __global__ void __launch_bounds__(kBwdThreads, 2) blend_bwd_kernel(
   float T = 1.0f;
   float prefix = 0.0f;
   bool done = false;
-  stage_rows(s_rows[0], feats, start, end, threadIdx.x, kBwdThreads);
+  stage_rows<kF>(s_rows[0], feats, start, end, threadIdx.x, kBwdThreads);
   cp_async_commit();
   long long stop = start;  // rows [start, stop) of dst written
   int buf = 0;
   for (long long b0 = start; b0 < end; b0 += kBatch, buf ^= 1) {
     // buf ^ 1 held the last batch, read before that batch's second barrier
     if (b0 + kBatch < end)
-      stage_rows(s_rows[buf ^ 1], feats, b0 + kBatch, end, threadIdx.x, kBwdThreads);
+      stage_rows<kF>(s_rows[buf ^ 1], feats, b0 + kBatch, end, threadIdx.x, kBwdThreads);
     cp_async_commit();
     cp_async_wait<1>();
     // the batch's rows are visible, s_part is free, and the unit leaves
@@ -365,7 +379,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) blend_bwd_kernel(
     // evaluations first (independent of T), then the walk in order, then
     // one reduce-scatter of the group's terms, skipped when no lane took
     // part; lane l's sum is term l % F of the group's pair l / F
-    unsigned todo = __all_sync(kFull, done) ? 0u : patch_pairs(rows, nb, px, py);
+    unsigned todo = __all_sync(kFull, done) ? 0u : patch_pairs<kF>(rows, nb, px, py);
     while (todo) {
       int idx[kGroup];
       take_pairs(todo, idx);
@@ -414,7 +428,12 @@ __global__ void __launch_bounds__(kBwdThreads, 2) blend_bwd_kernel(
       if (__any_sync(kFull, took_part)) {
         const float s = warp_reduce_scatter(v, lane);
         const int q = lane / kF;
-        const int row = q == 0 ? idx[0] : (q == 1 ? idx[1] : idx[2]);
+        int row;
+        if constexpr (kGroup == 3) {
+          row = q == 0 ? idx[0] : (q == 1 ? idx[1] : idx[2]);
+        } else {
+          row = q == 0 ? idx[0] : idx[1];
+        }
         if (q < kGroup && row >= 0) part[row * kF + lane - q * kF] = s;
       }
       if (__all_sync(kFull, done)) break;
@@ -453,11 +472,40 @@ __global__ void __launch_bounds__(kBwdThreads, 2) blend_bwd_kernel(
   }
 }
 
-// The training path blends C = 4 channels (rgb + view depth) at tile 16 or
-// 32, and only those are built.
+// Tiles 16 and 32 (the units divide them) and C = 3 .. 8 are built.
 bool supported(int tile_size, int n_channels) {
-  return (tile_size == 16 || tile_size == 32) && n_channels == kChannels;
+  return (tile_size == 16 || tile_size == 32) && n_channels >= kMinChannels &&
+         n_channels <= kMaxChannels;
 }
+
+template <int kChannels>
+void launch_fwd(const float* feats, const long long* ranges, const int* order, float* out,
+                int blocks, int units, int grid_x, int tile_size, cudaStream_t s) {
+  blend_fwd_kernel<kChannels><<<blocks, kFwdThreads, 0, s>>>(feats, ranges, order, out, units,
+                                                             grid_x, tile_size);
+}
+
+template <int kChannels>
+void launch_bwd(const float* feats, const long long* ranges, const int* order, const float* out,
+                const float* g_out, float* d_feats, float* partial, long long* stops,
+                int* arrive, long long n_pairs, int blocks, int units, int grid_x,
+                int tile_size, cudaStream_t s) {
+  blend_bwd_kernel<kChannels><<<blocks, kBwdThreads, 0, s>>>(
+      feats, ranges, order, out, g_out, d_feats, partial, stops, arrive, n_pairs, units, grid_x,
+      tile_size);
+}
+
+// Calls LAUNCH<C>(args...) for the runtime channel count C (supported()
+// checked first).
+#define DISPATCH_CHANNELS(C, LAUNCH, ...) \
+  switch (C) {                            \
+    case 3: LAUNCH<3>(__VA_ARGS__); break; \
+    case 4: LAUNCH<4>(__VA_ARGS__); break; \
+    case 5: LAUNCH<5>(__VA_ARGS__); break; \
+    case 6: LAUNCH<6>(__VA_ARGS__); break; \
+    case 7: LAUNCH<7>(__VA_ARGS__); break; \
+    default: LAUNCH<8>(__VA_ARGS__); break; \
+  }
 
 cudaError_t launch_order(const long long* ranges, int num_tiles, int* order, int* arrive,
                          cudaStream_t stream) {
@@ -480,9 +528,9 @@ int blend_forward(const void* feats, const void* ranges, void* out, void* order,
   cudaError_t err = launch_order((const long long*)ranges, num_tiles, (int*)order, nullptr, s);
   if (err != cudaSuccess) return (int)err;
   const int units = (tile_size / kFwdUnit) * (tile_size / kFwdUnit);
-  blend_fwd_kernel<<<num_tiles * units, kFwdThreads, 0, s>>>(
-      (const float*)feats, (const long long*)ranges, (const int*)order, (float*)out, units,
-      grid_x, tile_size);
+  DISPATCH_CHANNELS(n_channels, launch_fwd, (const float*)feats, (const long long*)ranges,
+                    (const int*)order, (float*)out, num_tiles * units, units, grid_x, tile_size,
+                    s);
   return (int)cudaGetLastError();
 }
 
@@ -500,10 +548,10 @@ int blend_backward(const void* feats, const void* ranges, const void* out, const
   cudaError_t err = launch_order((const long long*)ranges, num_tiles, (int*)order,
                                  units > 1 ? (int*)arrive : nullptr, s);
   if (err != cudaSuccess) return (int)err;
-  blend_bwd_kernel<<<num_tiles * units, kBwdThreads, 0, s>>>(
-      (const float*)feats, (const long long*)ranges, (const int*)order, (const float*)out,
-      (const float*)g_out, (float*)d_feats, (float*)partial, (long long*)stops, (int*)arrive,
-      n_pairs, units, grid_x, tile_size);
+  DISPATCH_CHANNELS(n_channels, launch_bwd, (const float*)feats, (const long long*)ranges,
+                    (const int*)order, (const float*)out, (const float*)g_out, (float*)d_feats,
+                    (float*)partial, (long long*)stops, (int*)arrive, n_pairs,
+                    num_tiles * units, units, grid_x, tile_size, s);
   return (int)cudaGetLastError();
 }
 

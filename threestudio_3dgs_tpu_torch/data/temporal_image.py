@@ -9,9 +9,9 @@ the JAX package draws it, and the random cameras, ``num_frames`` times the
 configured batch, with each frame's timestamp and index repeated over its
 cameras.  The eval circles get timestamps spread over [0, 1].
 
-One difference from the JAX package, which keeps the first resolution for
-the whole run: the resolution milestones apply, as they do for the single
-image (the frames are reloaded at each new size)."""
+The frames keep the first entry of ``height``/``width`` for the whole run,
+as in the JAX package: the resolution milestones do not apply (the random
+cameras keep their own schedule)."""
 
 from __future__ import annotations
 
@@ -82,7 +82,6 @@ class TemporalImageDataModule(SingleImageDataModule):
 
     def train_batch(self, global_step: int) -> Dict[str, Any]:
         cfg = self.cfg
-        self._set_resolution(global_step)
         idx = np.sort(self.rng.choice(cfg.video_length, (cfg.num_frames,), replace=False))
         timestamps = self.timestamps[idx]
         frame_indices = self.frame_indices[idx]

@@ -96,6 +96,8 @@ class PromptUtils:
 
 @register("dummy-prompt-processor")
 @register("stable-diffusion-prompt-processor")
+@register("stable-zero123-prompt-processor")
+@register("zero123-prompt-processor")
 class PromptProcessor:
     Config = PromptProcessorConfig
 

@@ -1,7 +1,8 @@
-"""Deterministic fake SDS guidance (port of the JAX package's
-``fake-sds-guidance``): an analytic denoiser whose clean image is a fixed
-target colour, run through the real SDS plumbing, so no diffusion
-checkpoint is needed."""
+"""Deterministic fake guidances (port of the JAX package's
+``fake-sds-guidance`` and ``fake-mse-guidance``), so no diffusion
+checkpoint is needed: an analytic denoiser whose clean image is a fixed
+target colour, run through the real SDS plumbing; and the plain squared
+error to that colour, summed over the pixels of a view."""
 
 from __future__ import annotations
 
@@ -63,3 +64,21 @@ class FakeSDSGuidance(BaseGuidance):
             sched = sds_sched_scalars(self.sds_cfg, 0)
         loss, aux = sds_loss(rgb, denoise_fn, generator, sched, self.sds_cfg, ac)
         return {"loss_sds": loss, "grad_norm": aux["grad_norm"]}
+
+
+@register("fake-mse-guidance")
+class FakeMSEGuidance(BaseGuidance):
+    """mean((rgb - target)^2) x H x W: no noise and no timestep."""
+
+    Config = FakeGuidanceConfig
+
+    def __init__(self, cfg=None, device=None, **kwargs):
+        if cfg is None:
+            cfg = FakeGuidanceConfig(**kwargs)
+        elif isinstance(cfg, dict):
+            cfg = parse_structured(FakeGuidanceConfig, cfg)
+        self.cfg = cfg
+
+    def __call__(self, rgb, prompt_utils, batch, generator=None, sched=None):
+        target = torch.tensor(self.cfg.target_color, dtype=torch.float32, device=rgb.device)
+        return {"loss_sds": torch.mean((rgb - target) ** 2) * rgb.shape[1] * rgb.shape[2]}

@@ -8,8 +8,10 @@ A JAX ``SpacetimeParams`` field becomes the port's ``SpacetimeParams``.
 ``extra_params`` and ``extra_opt`` (the neural background's MLP, the
 deformation network's nested tree, and their Adam moments, flattened to
 slash-joined names), which the port cannot draw itself: the JAX package
-draws them from a JAX PRNG.  Only attribute access is used, so nothing of the JAX
-package is imported here."""
+draws them from a JAX PRNG.  ``sugar_state_from_numpy`` carries a JAX
+``SuGaRState`` (the mesh-bound params, their Adam moments and count, the
+faces, the barycentric table and the thickness).  Only attribute access is
+used, so nothing of the JAX package is imported here."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from .gaussian_field import STAT_FIELDS, GaussianParams, GaussianState
 from .optim import AdamState
 from .spacetime import TEMPORAL_FIELDS, SpacetimeParams
+from .sugar import SuGaRParams, SuGaRState
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
@@ -87,12 +90,38 @@ def gaussian_state_from_numpy(tree: Any, device="cuda") -> GaussianState:
     )
 
 
-def to_numpy(state: GaussianState) -> Dict[str, Any]:
-    """Nested dict of numpy arrays with the JAX state's field names."""
+def sugar_state_from_numpy(tree: Any, device="cuda") -> SuGaRState:
+    """A host-side JAX ``SuGaRState`` -> the port's."""
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    def fields(t):
+        return {k: dev(getattr(t, k)) for k in SuGaRParams.FIELDS}
+
+    return SuGaRState(
+        params=SuGaRParams(**fields(tree.params)),
+        adam=AdamState(mu=fields(tree.adam.mu), nu=fields(tree.adam.nu),
+                       count=int(np.asarray(tree.adam.count))),
+        faces=dev(tree.faces, torch.int64), bary=dev(tree.bary), thickness=dev(tree.thickness),
+    )
+
+
+def to_numpy(state: Any) -> Dict[str, Any]:
+    """Nested dict of numpy arrays with the JAX state's field names (a
+    Gaussian field's or a ``SuGaRState``'s)."""
 
     def host(t):
         return t.detach().cpu().numpy()
 
+    if isinstance(state, SuGaRState):
+        return {
+            "params": {k: host(v) for k, v in state.params.as_dict().items()},
+            "adam": {"mu": {k: host(v) for k, v in state.adam.mu.items()},
+                     "nu": {k: host(v) for k, v in state.adam.nu.items()},
+                     "count": state.adam.count},
+            **{k: host(getattr(state, k)) for k in ("faces", "bary", "thickness")},
+        }
     return {
         "params": {k: host(v) for k, v in state.params.as_dict().items()},
         "adam": {

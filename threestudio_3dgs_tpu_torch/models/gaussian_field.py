@@ -556,6 +556,14 @@ class GaussianField:
     def color_clip(self, step: int) -> float:
         return float(C(self.cfg.color_clip, 0, step))
 
+    def apply_gradients(self, state: GaussianState, grads: Dict[str, torch.Tensor],
+                        lrs: Dict[str, float]) -> GaussianState:
+        return apply_gradients(state, grads, lrs)
+
+    def accumulate_stats(self, state: GaussianState, radii: torch.Tensor,
+                         visibility: torch.Tensor, vs_grad_norm: torch.Tensor) -> GaussianState:
+        return accumulate_stats(state, radii, visibility, vs_grad_norm)
+
     def update_states(self, state: GaussianState, iteration: int,
                       generator: Optional[torch.Generator] = None,
                       draws=None) -> Tuple[GaussianState, bool]:

@@ -6,9 +6,10 @@ Pipeline: project (torch autograd) -> bin (index math, no gradient) ->
 gather per-pair features (``pair_gather``; its backward is the sort plus
 segmented-sum reduction) -> blend (``torch.autograd.Function`` over the
 K1/K2 kernels) -> assemble channels and composite the background.  One
-blend pass carries rgb and the view depth plus the implicit weight-sum
-channel (the alpha map); the JAX package's extra feature channels and
-depth-less render wait for a renderer that uses them.
+blend pass carries rgb, the view depth (unless ``with_depth=False``) and
+any extra per-Gaussian features, C = 3 + depth + E channels, plus the
+implicit weight-sum channel (the alpha map): C = 4 on the Gaussian
+renderers, 7 on SuGaR's (+ face normals).
 """
 
 from __future__ import annotations
@@ -78,15 +79,18 @@ def rasterize(
     colors: Optional[torch.Tensor] = None,  # (N, 3) precomputed colours
     sh_coeffs: Optional[torch.Tensor] = None,  # (N, K, 3)
     sh_degree: int = 0,
+    extra_features: Optional[torch.Tensor] = None,  # (N, E) blended linearly
     alive: Optional[torch.Tensor] = None,  # (N,) bool capacity mask
     means2d_offset: Optional[torch.Tensor] = None,  # (N, 2) gradient side channel
     scaling_modifier: float = 1.0,
+    with_depth: bool = True,
     config: RasterizeConfig = RasterizeConfig(),
 ) -> Dict[str, Any]:
     """Render one view.  Returns a dict with:
       image (H, W, 3)  rgb composited over bg_color
       alpha (H, W)     1 - final transmittance
-      depth (H, W)     alpha-weighted view depth (no background)
+      depth (H, W)     alpha-weighted view depth (no background), if with_depth
+      extra (H, W, E)  blended extra features, if given
       radii (N,), visibility (N,), n_pairs, n_dropped (host ints)"""
     height, width = camera.height, camera.width
     ts = config.tile_size
@@ -101,7 +105,12 @@ def rasterize(
         if sh_coeffs is None:
             raise ValueError("provide colors or sh_coeffs")
         colors = sh_colors(means3d, sh_coeffs, camera.campos, sh_degree)
-    channels = torch.cat([colors, proj.depths[:, None]], dim=1)
+    chans = [colors]
+    if with_depth:
+        chans.append(proj.depths[:, None])
+    if extra_features is not None:
+        chans.append(extra_features)
+    channels = torch.cat(chans, dim=1)  # (N, C)
     n_channels = channels.shape[1]
 
     img_full, binning = _raster_core(
@@ -111,12 +120,18 @@ def rasterize(
     alpha = img_full[..., n_channels]
     rgb = rgb + (1.0 - alpha[..., None]) * bg_color
 
-    return {
+    result: Dict[str, Any] = {
         "image": rgb,
         "alpha": alpha,
-        "depth": img_full[..., 3],
         "radii": proj.radii,
         "visibility": proj.visible & (proj.radii > 0),
         "n_pairs": binning.n_pairs,
         "n_dropped": binning.n_dropped,
     }
+    idx = 3
+    if with_depth:
+        result["depth"] = img_full[..., idx]
+        idx += 1
+    if extra_features is not None:
+        result["extra"] = img_full[..., idx: idx + extra_features.shape[1]]
+    return result

@@ -15,7 +15,8 @@ product stays >= 1e-4, and in the backward take the suffix sums as
 U_tot - prefix in forward order.  The kernels walk the same pairs one at a
 time (see the source note in ``csrc/blend.cu``).  ``blend_forward`` and
 ``blend_backward`` take the plain twin for CPU tensors and launch the
-kernel for CUDA tensors.
+kernel for CUDA tensors; each launch is also counted under its channel
+count (``native.SHAPE_LAUNCHES[(fn, "C<n>")]``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ CHUNK = 64  # pairs per step of the plain twin
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
-KERNEL_CHANNELS = 4  # the kernels are built for rgb + view depth only
+KERNEL_CHANNELS = range(3, 9)  # the channel counts the kernels are built for
 KERNEL_TILE_SIZES = (16, 32)
 # the kernels' work units, square blocks of pixels (csrc/blend.cu kFwdUnit,
 # kBwdUnit)
@@ -172,16 +173,16 @@ def blend_backward_torch(
 
 
 def _check_blend_args(pair_feats, tile_ranges, num_tiles, tile_size, n_channels):
+    if n_channels not in KERNEL_CHANNELS:
+        raise ValueError(f"blend kernels take 3 to 8 channels, got {n_channels}")
+    if tile_size not in KERNEL_TILE_SIZES:
+        raise ValueError(f"blend kernels take tile size {KERNEL_TILE_SIZES}, got {tile_size}")
     native.check_cuda_tensor(pair_feats, "pair_feats", torch.float32, 2)
     native.check_cuda_tensor(tile_ranges, "tile_ranges", torch.int64, 1)
     if tile_ranges.shape[0] != num_tiles + 1:
         raise ValueError(f"tile_ranges must have {num_tiles + 1} entries, got {tile_ranges.shape[0]}")
     if pair_feats.shape[1] != 6 + n_channels:
         raise ValueError(f"pair_feats has {pair_feats.shape[1]} columns, want {6 + n_channels}")
-    if n_channels != KERNEL_CHANNELS:
-        raise ValueError(f"blend kernels take {KERNEL_CHANNELS} channels, got {n_channels}")
-    if tile_size not in KERNEL_TILE_SIZES:
-        raise ValueError(f"blend kernels take tile size {KERNEL_TILE_SIZES}, got {tile_size}")
 
 
 def backward_scratch(num_tiles: int, n_pairs: int, tile_size: int, n_feats: int, device):
@@ -216,6 +217,7 @@ def blend_forward_cuda(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_cha
     native.launch(
         "blend_forward", pair_feats.data_ptr(), tile_ranges.data_ptr(), out.data_ptr(),
         order.data_ptr(), num_tiles, grid_x, tile_size, n_channels, native.stream_handle(device),
+        shape=f"C{n_channels}",
     )
     return out
 
@@ -242,6 +244,7 @@ def blend_backward_cuda(
         g_out.data_ptr(), d_feats.data_ptr(),
         *(scratch[k].data_ptr() for k in ("partial", "stops", "arrive", "order")),
         n_pairs, num_tiles, grid_x, tile_size, n_channels, native.stream_handle(device),
+        shape=f"C{n_channels}",
     )
     return d_feats
 

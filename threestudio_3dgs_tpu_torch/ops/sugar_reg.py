@@ -10,7 +10,8 @@
     between density and target;
   * the better-normal loss aligns the density gradient at each sample
     (autograd, with the graph kept so the loss trains through it) with its
-    source Gaussian's smallest axis.
+    source Gaussian's smallest axis, or the PCA normal of the centre cloud
+    (``ops/mesh.py``).
 
 The samples come from a ``torch.Generator``; the test-only ``draws`` dict
 ({"gumbel": (S, N) Gumbel noise whose argmax over logits + noise picks the
@@ -26,6 +27,7 @@ import torch
 
 from . import quaternion
 from .image import normalize_vec
+from .mesh import estimate_pointcloud_normals
 
 
 @dataclasses.dataclass
@@ -122,11 +124,8 @@ def sdf_better_normal_loss(generator, gaussians: Dict[str, torch.Tensor], knn_id
                            neighborhood_size: int = 32,
                            draws: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """mean(1 - |cos|) between the density gradient at the samples and the
-    source Gaussian's smallest-scale axis.  ``normals_from_points`` (the
-    PCA normals of the centre cloud) needs the mesh ops, which are not
-    ported: it raises."""
-    if normals_from_points:
-        raise NotImplementedError("normals_from_points needs ops/mesh, not ported yet")
+    source Gaussian's smallest-scale axis, or with ``normals_from_points``
+    the PCA normal of the (detached) centre cloud at the source."""
     g = gaussians
     pts, idx = sample_points_in_gaussians(generator, g["means"], g["scales"], g["quats"],
                                           g["alive"], n_samples, draws)
@@ -136,8 +135,12 @@ def sdf_better_normal_loss(generator, gaussians: Dict[str, torch.Tensor], knn_id
                                  g["opacities"], g["alive"])
         grads = torch.autograd.grad(dens.sum(), p, create_graph=True)[0]
     grad_dir = normalize_vec(grads)
-    rot = quaternion.to_rotation_matrix(g["quats"][idx])
-    axis_id = torch.argmin(g["scales"][idx], dim=-1)
-    normal_axis = rot.transpose(-1, -2)[torch.arange(idx.shape[0], device=idx.device), axis_id]
+    if normals_from_points:
+        normal_axis = estimate_pointcloud_normals(g["means"].detach(), neighborhood_size)[idx]
+    else:
+        rot = quaternion.to_rotation_matrix(g["quats"][idx])
+        axis_id = torch.argmin(g["scales"][idx], dim=-1)
+        normal_axis = rot.transpose(-1, -2)[torch.arange(idx.shape[0], device=idx.device),
+                                            axis_id]
     cos = torch.abs(torch.sum(grad_dir * normal_axis, dim=-1))
     return torch.mean(1.0 - cos)

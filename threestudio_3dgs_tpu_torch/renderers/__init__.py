@@ -1,1 +1,1 @@
-from . import gaussian, spacetime  # noqa: F401
+from . import gaussian, spacetime, sugar  # noqa: F401

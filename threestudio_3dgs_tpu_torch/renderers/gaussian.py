@@ -239,7 +239,7 @@ class GaussianRendererBase:
         c2w = batch["c2w"]
         bs = c2w.shape[0]
         height, width = int(batch["height"]), int(batch["width"])
-        device = gauss.params.xyz.device
+        device = self.state_device(gauss)
         per_view = []
         for i in range(bs):
             temporal = {}
@@ -276,6 +276,10 @@ class GaussianRendererBase:
         return self._stack_views(per_view)
 
     @staticmethod
+    def state_device(gauss) -> torch.device:
+        return gauss.params.xyz.device
+
+    @staticmethod
     def _stack_views(per_view) -> Dict[str, Any]:
         outputs: Dict[str, Any] = {
             "comp_rgb": torch.stack([o["render"] for o in per_view]),
@@ -285,7 +289,9 @@ class GaussianRendererBase:
             "n_pairs": torch.tensor([o["n_pairs"] for o in per_view]),
         }
         for name, out_name in (("depth", "comp_depth"), ("mask", "comp_mask"),
-                               ("normal", "comp_normal"), ("comp_rgb_bg", "comp_rgb_bg")):
+                               ("normal", "comp_normal"),
+                               ("normal_from_dist", "comp_normal_from_dist"),
+                               ("comp_rgb_bg", "comp_rgb_bg")):
             if name in per_view[0]:
                 stacked = torch.stack([o[name] for o in per_view])
                 outputs[out_name] = stacked[..., None] if stacked.dim() == 3 else stacked

@@ -1,0 +1,111 @@
+"""SuGaR renderers (port of the JAX package's ``renderers/sugar.py``:
+``diff-sugar-rasterizer-normal`` and ``diff-sugar-rasterizer-shading``).
+
+The geometry's mesh-bound Gaussians are rendered view by view through the
+shared per-view loop; one blend pass carries rgb, the view depth and the
+Gaussians' face normals as extra channels, C = 7 (K1/K2 at 7 channels on
+the card).  Per view:
+
+  * ``normal`` = clip(-extra * 0.5 + 0.5): the splatted face normals, the
+    sign flipped to the reference's camera convention;
+  * ``normal_from_dist`` (where the batch has ``rays_o``/``rays_d``): the
+    screen-space normals of the depth's xyz map, * 0.5 alpha + 0.5;
+  * ``-shading``: albedo = image / max(alpha, 1e-4) lit by the material
+    with the splatted normals at the view's ``light_positions``, over the
+    background.
+
+The kernel background follows the Gaussian renderers' rule (inverted on a
+draw in training, always at eval).  ``diff-sugar-rasterizer-temporal``
+needs the dynamic SuGaR geometry, not ported yet."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..ops import camera as cam_ops
+from ..ops.image import depth_to_normal, normalize_vec
+from ..ops.rasterizer import RasterizeConfig, rasterize
+from ..utils.registry import register
+from .gaussian import GaussianRendererBase
+
+
+class SuGaRRendererBase(GaussianRendererBase):
+    with_depth = True
+    with_mask = True
+
+    @staticmethod
+    def state_device(gauss) -> torch.device:
+        return gauss.params.points.device
+
+    def _post_view(self, out: Dict[str, Any], *, bg_params=None, rays_o=None, rays_d=None,
+                   light_positions=None, generator=None, ambient_only: bool = False,
+                   training: bool = False, ambient_ratio=None, shading: Optional[str] = None,
+                   draws: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        alpha = out["alpha"]
+        depth = out["depth"]
+        normal_splat = -out["extra"]
+        result: Dict[str, Any] = {
+            "render": torch.clamp(out["image"], 0.0, 1.0),
+            "radii": out["radii"],
+            "visibility_filter": out["visibility"],
+            "n_dropped": out["n_dropped"],
+            "n_pairs": out["n_pairs"],
+            "mask": alpha,
+            "depth": depth,
+            "normal": torch.clamp(normal_splat * 0.5 + 0.5, 0.0, 1.0),
+        }
+        if rays_o is not None and rays_d is not None:
+            nfd = normalize_vec(depth_to_normal(rays_o + depth[..., None] * rays_d))
+            result["normal_from_dist"] = nfd * 0.5 * alpha[..., None] + 0.5
+        if self.with_shading and self.material is not None:
+            albedo = torch.clamp(out["image"] / torch.clamp_min(alpha[..., None], 1e-4), 0.0, 1.0)
+            shaded = self.material.shade(
+                rays_o + depth[..., None] * rays_d, normal_splat, light_positions, albedo,
+                generator=generator, ambient_only=ambient_only, training=training,
+                ambient_ratio=ambient_ratio, shading=shading, draws=draws,
+            )
+            comp = shaded * alpha[..., None]
+            if self.background is not None:
+                bg_color = self.background(bg_params, rays_d, generator=generator,
+                                           training=training, draws=draws)
+                comp = comp + (1.0 - alpha[..., None]) * bg_color
+                result["comp_rgb_bg"] = bg_color
+            result["render"] = torch.clamp(comp, 0.0, 1.0)
+        return result
+
+    def render_one(self, sugar_state, camera: cam_ops.Camera, *, bg_params=None, rays_o=None,
+                   rays_d=None, light_positions=None,
+                   generator: Optional[torch.Generator] = None, ambient_only: bool = False,
+                   training: bool = False, color_clip: float = float("inf"),
+                   means2d_offset: Optional[torch.Tensor] = None, override_color=None,
+                   scaling_modifier: float = 1.0, ambient_ratio=None,
+                   shading: Optional[str] = None,
+                   draws: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        geo = self.geometry
+        device = self.state_device(sugar_state)
+        kernel_bg = self._kernel_bg(generator, training, device, draws)
+        arrays = geo.as_gaussian_arrays(sugar_state, color_clip)
+        out = rasterize(
+            arrays["means3d"], arrays["scales"], arrays["quats"], arrays["opacities"], camera,
+            kernel_bg, sh_coeffs=arrays["sh_coeffs"], sh_degree=geo.active_sh_degree,
+            extra_features=arrays["normals"], means2d_offset=means2d_offset,
+            scaling_modifier=scaling_modifier, with_depth=True,
+            config=RasterizeConfig(tile_size=self.cfg.tile_size, max_pairs=self.cfg.max_pairs),
+        )
+        return self._post_view(
+            out, bg_params=bg_params, rays_o=rays_o, rays_d=rays_d,
+            light_positions=light_positions, generator=generator, ambient_only=ambient_only,
+            training=training, ambient_ratio=ambient_ratio, shading=shading, draws=draws,
+        )
+
+
+@register("diff-sugar-rasterizer-normal")
+class DiffSugarRasterizerNormal(SuGaRRendererBase):
+    pass
+
+
+@register("diff-sugar-rasterizer-shading")
+class DiffSugarRasterizerShading(SuGaRRendererBase):
+    with_shading = True

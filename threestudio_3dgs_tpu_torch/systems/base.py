@@ -12,10 +12,12 @@ step.  A (B, CAP, 2) zeros tensor that requires grad is added to the screen
 positions of every view; its gradient is the means2d side channel whose
 norms feed the densification statistics.  The extra parameters (the neural
 background's MLP, ``extra_params["background"]``) take their own Adam step
-(eps 1e-8) at ``extra_lr``.  The step ends with the structural update when
-one is due (its draws from the step's generator).  Evaluation renders views
-without gradients (the background parameters included) and saves
-validation PNGs."""
+(eps 1e-8) at ``extra_lr``.  The geometry steps its own params
+(``apply_gradients``), keeps its densify statistics (``accumulate_stats``)
+and ends the step with the structural update when one is due
+(``update_states``, its draws from the step's generator).  Evaluation
+renders views without gradients (the background parameters included) and
+saves validation PNGs."""
 
 from __future__ import annotations
 
@@ -221,7 +223,7 @@ class BaseGaussianSystem:
         grads = torch.autograd.grad(total, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
         g_gauss = dict(zip(leaves.keys(), grads[:len(leaves)]))
-        gauss = gf.apply_gradients(gauss, g_gauss, sched["lrs"])
+        gauss = self.geometry.apply_gradients(gauss, g_gauss, sched["lrs"])
         extra_params, extra_opt = state.extra_params, state.extra_opt
         if extra:
             g_extra = dict(zip(extra.keys(), grads[len(leaves):-1]))
@@ -229,7 +231,7 @@ class BaseGaussianSystem:
                               {k: self.extra_lr for k in extra}, eps=1e-8)
             extra_params = unflatten_extra(new)
         vs_grad_norm = torch.linalg.norm(grads[-1], dim=-1)  # (B, CAP), NDC units
-        gauss = gf.accumulate_stats(
+        gauss = self.geometry.accumulate_stats(
             gauss, outs[-1]["radii"].float(), outs[-1]["visibility_filter"], vs_grad_norm
         )
         logs["n_dropped_pairs"] = sum(int(o["n_dropped"].sum()) for o in outs)

@@ -178,7 +178,8 @@ class Zero123System(BaseGaussianSystem):
             guidance_out = self.guidance(out_z["comp_rgb"], self.prompt_utils, rcb,
                                          generator=generator, sched=sched.get("guidance"))
             logs["train/loss_zero123_sds"] = guidance_out["loss_sds"]
-            logs["zero123/grad_norm"] = guidance_out["grad_norm"]
+            if "grad_norm" in guidance_out:  # fake-mse-guidance has none
+                logs["zero123/grad_norm"] = guidance_out["grad_norm"]
             loss_z = guidance_out["loss_sds"] * self.loss_lambda(sched, "lambda_sds")
             loss_z = loss_z + self._normal_smooth_loss(out_z, sched, logs, "zero123")
             loss_z = loss_z + self._guidance_2d_losses(out_z, rcb, sched, generator, logs, sig)

@@ -1,6 +1,6 @@
-"""SuGaR's free-Gaussian surface regularisers (port of the mixin of the JAX
-package's ``systems/sugar_static.py``; its ``sugar-static-system`` itself is
-not ported yet).
+"""SuGaR's static two-stage system (port of the JAX package's
+``systems/sugar_static.py``, ``sugar-static-system``), and the mixin of
+SuGaR's free-Gaussian surface regularisers it shares with the 4D system.
 
 ``GaussianStageRegMixin`` gives a system, on its reference substep:
   * the opacity binary term mean(a (1 - a)) over the live Gaussians;
@@ -9,19 +9,43 @@ not ported yet).
     reference view and the SDF better-normal alignment
     (``ops/sugar_reg.py``, at most 8192 and 2048 samples), on a k-NN table
     of the live Gaussians refreshed every ``reset_neighbors_every`` steps.
-The 4D system's static stage uses it."""
+
+``SugarStaticSystem``:
+  * stage "gaussian" (``gs_to_sugar*.yaml``): the image-to-3D step of
+    ``Zero123System`` with the mixin's regularisers, the optional 2D SDS on
+    the random-camera substep (``guidance_2d_type``), and the geometry's
+    structural update, whose ``sugar_prune_at`` hard-prunes the
+    low-opacity Gaussians for the handoff;
+  * stage "sugar" (``sugar_static_refine*.yaml``): the ``sugar`` geometry
+    bound to a mesh extracted from ``geometry_convert_from`` (a port
+    ``.ckpt.npz`` or a 3DGS ``.ply`` of the gaussian stage) or read from an
+    ``.obj``, rendered by the SuGaR renderers (K1/K2 at 7 channels), with
+    the zero123 and ref substeps' losses plus normal consistency, Laplacian
+    smoothing, opacity-max, normal-depth consistency and the TV terms; Adam
+    over the mesh-bound params, the extra Adam over the background's.
+
+Random draws come from the step's generator; the test-only ``step_draws``
+(step -> {"density": ..., "normal": ...}) feeds the JAX package's SuGaR
+samples in.  ``--predict``'s textured-mesh bake is not ported: it raises."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from ..models import gaussian_field as gf
+from ..models.sugar import gaussian_strengths
 from ..ops import knn as knn_ops
+from ..ops import mesh as mesh_ops
 from ..ops import sugar_reg
 from ..ops.camera import camera_from_c2w
 from ..utils.config import parse_structured
+from ..utils.loss import tv_loss
+from ..utils.registry import find, register
+from .base import SystemState
+from .gaussian_zero123 import Zero123System, Zero123SystemConfig
 
 
 @torch.no_grad()
@@ -105,3 +129,175 @@ class GaussianStageRegMixin:
                 logs["train/loss_normal_regulation"] = nl
                 loss = loss + nl * self.loss_lambda(sched, "lambda_normal_regulation")
         return loss
+
+
+@dataclasses.dataclass
+class SugarStaticConfig(Zero123SystemConfig):
+    stage: str = "gaussian"  # "gaussian" | "sugar"
+    sugar: dict = dataclasses.field(default_factory=dict)
+    # the optional 2D-diffusion SDS on the random-camera substep, on the
+    # normals every freq.input_normal steps, from freq.milestone_2d_sds
+    guidance_2d_type: Optional[str] = None
+    guidance_2d: dict = dataclasses.field(default_factory=dict)
+    prompt_processor_2d_type: Optional[str] = None
+    prompt_processor_2d: dict = dataclasses.field(default_factory=dict)
+    n_samples_for_sugar_sdf_reg: Optional[int] = None  # the reference's name
+
+
+@register("sugar-static-system")
+class SugarStaticSystem(GaussianStageRegMixin, Zero123System):
+    Config = SugarStaticConfig
+
+    # the reference's lambda names -> the port's (gs_to_sugar.yaml)
+    _LOSS_ALIASES = {
+        "lambda_sugar_density_reg": "lambda_density_regulation",
+        "lambda_sugar_sdf_normal_reg": "lambda_normal_regulation",
+    }
+
+    def __init__(self, cfg=None, device="cuda", **kwargs):
+        super().__init__(cfg, device, **kwargs)
+        cfg = self.cfg
+        for ref_name, ours in self._LOSS_ALIASES.items():
+            if ref_name in cfg.loss and ours not in cfg.loss:
+                cfg.loss[ours] = cfg.loss[ref_name]
+        sugar_dict = dict(cfg.sugar)
+        if cfg.n_samples_for_sugar_sdf_reg is not None:
+            sugar_dict.setdefault("n_samples_for_sdf_regularization",
+                                  cfg.n_samples_for_sugar_sdf_reg)
+        self._init_sugar_stage(sugar_dict)
+        self.guidance_2d = (find(cfg.guidance_2d_type)(cfg.guidance_2d, device=self.device)
+                            if cfg.guidance_2d_type else None)
+        pp2 = (find(cfg.prompt_processor_2d_type)(cfg.prompt_processor_2d, device=self.device)
+               if cfg.prompt_processor_2d_type else None)
+        self.prompt_utils_2d = pp2() if pp2 else None
+        self.step_draws: Optional[Callable[[int], Dict[str, Any]]] = None
+        self._draws: Dict[str, Any] = {}
+        if cfg.stage == "sugar":
+            self._maybe_bind_mesh()
+
+    # -- the optional 2D SDS -----------------------------------------------------
+    def _extra_sig(self, step: int) -> tuple:
+        """(use the 2D SDS, feed it the normals) at this step."""
+        if self.guidance_2d is None:
+            return (False, False)
+        freq = self.cfg.freq or {}
+        every = max(int(freq.get("input_normal", 0)), 0)
+        return (step >= int(freq.get("milestone_2d_sds", 0)), every > 0 and step % every == 0)
+
+    def _guidance_2d_losses(self, out_z, rcb, sched, generator, logs, sig) -> torch.Tensor:
+        use_2d, use_normal = sig
+        if self.guidance_2d is None or not use_2d:
+            return torch.zeros((), device=self.device)
+        inp = out_z["comp_normal"] if use_normal and "comp_normal" in out_z else out_z["comp_rgb"]
+        g2 = self.guidance_2d(inp, self.prompt_utils_2d, rcb, generator=generator,
+                              sched=sched.get("guidance"))
+        logs["train/loss_sds_2d"] = g2["loss_sds"]
+        return g2["loss_sds"] * self.loss_lambda(sched, "lambda_sds_2d")
+
+    def extra_substep_losses(self, gs, batch, sched, generator, logs, out_ref) -> torch.Tensor:
+        if self.cfg.stage == "gaussian":
+            return self._gaussian_stage_losses(gs, batch, sched, generator, logs, out_ref,
+                                               self._draws)
+        return torch.zeros((), device=self.device)
+
+    # -- the sugar stage's mesh --------------------------------------------------
+    def _maybe_bind_mesh(self) -> None:
+        """Binds the mesh of ``geometry_convert_from`` when the geometry has
+        none: extracted from a gaussian-stage ``.ckpt.npz`` / ``.npz`` or
+        3DGS ``.ply``, or read from an ``.obj``; any other source raises."""
+        src = self.cfg.geometry_convert_from or self.cfg.geometry.get("geometry_convert_from", "")
+        if not src or getattr(self.geometry, "_bound_mesh", None) is not None:
+            return
+        from ..models.mesh_extract import extract_mesh_from_gaussians
+
+        if src.endswith(".npz"):
+            from ..utils.ckpt import load_checkpoint
+
+            g_state = load_checkpoint(src, self.device)[0].gauss
+        elif src.endswith(".ply"):
+            g_state = gf.init_state(gf.GaussianFieldConfig(geometry_convert_from=src),
+                                    device=self.device)
+        elif src.endswith(".obj"):
+            self.geometry.bind_mesh(*mesh_ops.load_obj(src))
+            return
+        else:
+            raise ValueError(f"the sugar stage binds a mesh from a .ckpt.npz, .ply or .obj, "
+                             f"got {src!r}")
+        verts, faces = extract_mesh_from_gaussians(g_state)
+        if verts is None:
+            raise ValueError(f"mesh extraction from {src!r} found no surface (Gaussians too "
+                             "diffuse?); cannot bind the sugar stage")
+        self.geometry.bind_mesh(verts, faces)
+
+    def bind_mesh(self, verts, faces, colors=None) -> None:
+        self.geometry.bind_mesh(verts, faces, colors)
+
+    # -- the sugar stage's step ----------------------------------------------------
+    def forward_loss(self, gs, extra_params, batch, step, sched, generator):
+        """Stage "sugar": the zero123 substep (with the 2D SDS), the ref
+        substep, then the mesh and image regularisers on the last substep's
+        render.  The mesh-bound Gaussians keep no densify statistics, so its
+        ``vs_dummy`` is an empty zeros tensor."""
+        if self.cfg.stage != "sugar":
+            return super().forward_loss(gs, extra_params, batch, step, sched, generator)
+        do_ref, do_z = self._substep_mode(step)
+        rcb = batch.get("random_camera")
+        logs: Dict[str, Any] = {}
+        total = torch.zeros((), device=self.device)
+        outs = []
+        if do_z and rcb is not None:
+            out_z = self.render_batch(gs, extra_params, rcb, generator, sched, True)
+            guidance_out = self.guidance(out_z["comp_rgb"], self.prompt_utils, rcb,
+                                         generator=generator, sched=sched.get("guidance"))
+            logs["train/loss_zero123_sds"] = guidance_out["loss_sds"]
+            total = total + guidance_out["loss_sds"] * self.loss_lambda(sched, "lambda_sds")
+            total = total + self._guidance_2d_losses(out_z, rcb, sched, generator, logs,
+                                                     self._extra_sig(step))
+            outs.append(out_z)
+        if do_ref:
+            out_ref = self.render_batch(gs, extra_params, batch, generator, sched, True)
+            total = total + self._ref_losses(out_ref, batch, sched, logs)
+            outs.append(out_ref)
+        out = outs[-1] if outs else None
+
+        verts, topo = gs.params.points, self.geometry.topology_t
+        if self.has_loss("lambda_normal_consistency"):
+            nc = mesh_ops.normal_consistency_loss(verts, gs.faces, topo.edge_faces)
+            logs["train/loss_normal_consistency"] = nc
+            total = total + nc * self.loss_lambda(sched, "lambda_normal_consistency")
+        if self.has_loss("lambda_laplacian_smoothing"):
+            lap = mesh_ops.laplacian_smoothing_loss(verts, topo.vert_nbr_idx, topo.vert_nbr_mask)
+            logs["train/loss_laplacian_smoothing"] = lap
+            total = total + lap * self.loss_lambda(sched, "lambda_laplacian_smoothing")
+        if self.has_loss("lambda_opacity_max"):
+            om = torch.mean((1.0 - gaussian_strengths(gs.params)) ** 2)
+            logs["train/loss_opacity_max"] = om
+            total = total + om * self.loss_lambda(sched, "lambda_opacity_max")
+        if (self.has_loss("lambda_normal_depth_consistency") and out is not None
+                and "comp_normal" in out and "comp_normal_from_dist" in out):
+            ndc = torch.mean(((out["comp_normal"] * 2.0 - 1.0)
+                              - (out["comp_normal_from_dist"] * 2.0 - 1.0)) ** 2)
+            logs["train/loss_normal_depth_consistency"] = ndc
+            total = total + ndc * self.loss_lambda(sched, "lambda_normal_depth_consistency")
+        if self.has_loss("lambda_tv_loss") and out is not None:
+            tv = tv_loss(out["comp_rgb"])
+            logs["train/loss_tv"] = tv
+            total = total + tv * self.loss_lambda(sched, "lambda_tv_loss")
+        if out is not None:
+            total = self.tv_trio_losses(out, sched, logs, total)
+        logs["train/loss_total"] = total
+        logs["n_faces"] = gs.n_faces
+        return total, logs, outs, torch.zeros((0, 2), device=self.device, requires_grad=True)
+
+    def train_step(self, state: SystemState, batch, step: int, generator: torch.Generator):
+        self._draws = self.step_draws(step) if self.step_draws is not None else {}
+        # the gaussian stage's density / SDF regularisers read a k-NN table
+        # refreshed on the host every reset_neighbors_every steps
+        if self.cfg.stage == "gaussian" and (self.has_loss("lambda_density_regulation")
+                                             or self.has_loss("lambda_normal_regulation")):
+            self._refresh_knn(state, step)
+        return super().train_step(state, batch, step, generator)
+
+    def predict_textured_mesh(self, state, views, out_path: str):
+        raise NotImplementedError("--predict's textured-mesh bake (models/texture_bake.py, "
+                                  "ops/tri_raster.py) is not ported yet")

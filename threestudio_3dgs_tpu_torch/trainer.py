@@ -15,7 +15,8 @@ Drives the train / validate / test / predict / export lifecycle:
   * validate / test: fixed-circle renders -> PNGs (-> video where imageio
     exists), and the point-cloud PLY after the test renders;
   * export: the exporter's PLY and mesh;
-  * predict: this system has no predict surface, so it runs the test renders.
+  * predict: the SuGaR system's textured-mesh bake (not ported: it raises);
+    the other systems have no predict surface and run the test renders.
 """
 
 from __future__ import annotations
@@ -180,8 +181,11 @@ class Trainer:
         print(f"[trainer] test renders -> {out_dir}; video={video}; ply={ply_path}", flush=True)
 
     def predict(self):
-        """This system has no predict surface (the JAX package's SuGaR
-        systems have one): it runs the test renders."""
+        """The SuGaR system's textured-mesh bake (not ported: it raises);
+        a system without a predict surface runs the test renders."""
+        if hasattr(self.system, "predict_textured_mesh"):
+            out_path = os.path.join(self.save_dir, "save", "textured_mesh.obj")
+            return self.system.predict_textured_mesh(self.state, self.data.test_views(), out_path)
         print("[trainer] system has no predict path; running test()", flush=True)
         return self.test()
 

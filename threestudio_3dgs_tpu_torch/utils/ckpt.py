@@ -10,6 +10,10 @@ A spacetime field's temporal parameters are saved under their own names
 loads as a spacetime field; the deformation network's parameters are
 extra parameters (``extra/params/deformation/grids/0/0``, ...).
 
+A SuGaR state is saved as ``gauss/params/points``, ...,
+``gauss/adam/mu/points``, ..., ``gauss/faces``, ``gauss/bary`` and
+``gauss/thickness``; a checkpoint that holds ``gauss/faces`` loads as one.
+
 ``load_checkpoint`` reads the port's own files only.  A JAX package
 checkpoint stores its leaves by position beside a pickled JAX treedef,
 which cannot be read without JAX; ``models/convert.py`` carries a state
@@ -27,6 +31,7 @@ from ..models.convert import to_numpy
 from ..models.gaussian_field import STAT_FIELDS, GaussianParams, GaussianState
 from ..models.optim import AdamState
 from ..models.spacetime import TEMPORAL_FIELDS, SpacetimeParams
+from ..models.sugar import SuGaRParams, SuGaRState
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -63,9 +68,25 @@ def load_checkpoint_arrays(path: str) -> Tuple[Dict[str, np.ndarray], int]:
     return arrays, int(arrays.pop("__step__"))
 
 
-def _gauss_from_arrays(arrays: Dict[str, np.ndarray], device) -> GaussianState:
-    """The field of a checkpoint: a spacetime field where it has any
-    temporal parameter."""
+def _sugar_from_arrays(arrays: Dict[str, np.ndarray], device) -> SuGaRState:
+    def fields(prefix):
+        return {k: torch.as_tensor(arrays[f"gauss/{prefix}{k}"], device=device)
+                for k in SuGaRParams.FIELDS}
+
+    return SuGaRState(
+        params=SuGaRParams(**fields("params/")),
+        adam=AdamState(mu=fields("adam/mu/"), nu=fields("adam/nu/"),
+                       count=int(arrays["gauss/adam/count"])),
+        **{k: torch.as_tensor(arrays[f"gauss/{k}"], device=device)
+           for k in ("faces", "bary", "thickness")},
+    )
+
+
+def _gauss_from_arrays(arrays: Dict[str, np.ndarray], device) -> Any:
+    """The field of a checkpoint: a SuGaR state where it has faces, a
+    spacetime field where it has any temporal parameter."""
+    if "gauss/faces" in arrays:
+        return _sugar_from_arrays(arrays, device)
     temporal = any(f"gauss/params/{k}" in arrays for k in TEMPORAL_FIELDS)
     params_cls = SpacetimeParams if temporal else GaussianParams
 

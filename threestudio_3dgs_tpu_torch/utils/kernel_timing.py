@@ -120,9 +120,10 @@ def train_view_scene(run_dir: str, device="cuda"):
                     tile_size=trainer.system.renderer.cfg.tile_size)
 
 
-def view_inputs(scene, seed: int, device="cuda"):
+def view_inputs(scene, seed: int, device="cuda", max_pairs: int = 2**21):
     """K1-K4's inputs for one view, as ``rasterize`` makes them: the pair
-    plan, K1's and K2's pair rows, ranges and cotangent, and K3's rows,
+    plan, K1's and K2's pair rows (rgb, depth and the scene's ``extra``
+    features where it has them), ranges and cotangent, and K3's rows,
     offsets and counts from K2's pair gradients."""
     from threestudio_3dgs_tpu_torch.ops.rasterizer import binning, blend, preprocess
 
@@ -131,9 +132,10 @@ def view_inputs(scene, seed: int, device="cuda"):
     with torch.no_grad():
         proj = preprocess.project_gaussians(scene["means"], scene["scales"], scene["quats"], cam,
                                             ts, alive=scene["alive"])
-        plan = binning.plan_pairs(proj, gx, gy, 2**21, ts, scene["opac"])
-        bins = binning.bin_gaussians(proj, gx, gy, 2**21, ts, scene["opac"])
-        channels = torch.cat([scene["colors"], proj.depths[:, None]], dim=1)
+        plan = binning.plan_pairs(proj, gx, gy, max_pairs, ts, scene["opac"])
+        bins = binning.bin_gaussians(proj, gx, gy, max_pairs, ts, scene["opac"])
+        channels = torch.cat([scene["colors"], proj.depths[:, None]]
+                             + ([scene["extra"]] if scene.get("extra") is not None else []), dim=1)
         feats = torch.cat([proj.means2d, proj.conics, scene["opac"][:, None], channels], dim=1)
         pair_feats = feats[bins.pair_gauss].contiguous()
         gen = torch.Generator(device=device).manual_seed(seed)
