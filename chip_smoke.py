@@ -147,15 +147,39 @@ Phases, each of which fails the run with a non-zero exit:
      mesh vertices moved, 4 test renders, the PLY of every bound Gaussian,
      2 more steps with ``--resume``; K1-K4 held and timed at a 512^2
      reference view of the refined field (C = 7);
- 12. print the per-kernel JSON line (launches from the training runs, K6's
-     from its checks, K5 at d = 40 from ``zero123_guidance`` and
-     ``train_gs4d``; times at the main path's shapes, K6's at the bench
-     scene; K1-K4 rows at the trained 512^2 view, at the MVDream view, at
-     the zero123 YAML's 128^2 ref view (launches from ``train_zero123``)
-     and at the 4D field's 256^2 reference-frame view (launches from
-     ``train_gs4d``'s 10 steps), at the SuGaR field's 512^2 view (C = 7,
-     launches from ``train_sugar_refine``'s 10 steps); one K5 row per
-     shape and type;
+ 12. dynamic SuGaR: hold K5 at the temporal Zero123's CFG batches on these
+     YAMLs, (256, 1024, 40) and (16, 1024, 40) bf16, on standard normal and
+     rising keys; write the refined mesh of phase 11 to an OBJ and bind it
+     through ``surface_mesh_to_bind_path``; ``train_sugar_dynamic``: 10
+     steps of sugar_dynamic_dg_zero123.yaml through ``launch.main`` at its
+     widths (32 frames, 8 reference views at 512^2, 2 x 8 random views at
+     256^2, 1000 nodes x 16, DQS, the deformation network, per-node scale
+     deltas) on the random Stable Zero123 checkpoint, counters zeroed just
+     before: the bf16 denoiser built through ``attach_video_frames``, K5
+     exactly 5 times a step at (256, 1024, 40) and nowhere else, K1/K2 at 7
+     channels only, every loss finite, no pair dropped (under 2^24 pairs a
+     view), grad_norm > 0, the deformation network's head biases (its only
+     params with a gradient at the start) and the scale tracks moved; its
+     face count, median step and peak device memory printed; 4 test
+     renders, the PLY of every bound Gaussian, 2 more steps with
+     ``--resume``; then 3 steps each of sugar_dynamic.yaml (discrete,
+     spline; the inter-frame ARAP from step 1, on the command line),
+     sugar_drag.yaml (1 frame, no spline, on the checkpoint: K5 exactly 5
+     times a step at (16, 1024, 40)) and sugar_dynamic_dg.yaml, the node
+     tracks or the network trained; K1-K4 held and timed at a 256^2 random
+     view and a 512^2 reference view of the trained dynamic field at their
+     times (C = 7), K5 timed at both shapes;
+ 13. print the per-kernel JSON line (launches from the training runs, K6's
+     from its checks, K5 at d = 40 from ``zero123_guidance``,
+     ``train_gs4d`` and the dynamic SuGaR runs; times at the main path's
+     shapes, K6's at the bench scene; K1-K4 rows at the trained 512^2 view,
+     at the MVDream view, at the zero123 YAML's 128^2 ref view (launches
+     from ``train_zero123``), at the 4D field's 256^2 reference-frame view
+     (launches from ``train_gs4d``'s 10 steps), at the SuGaR field's 512^2
+     view (C = 7, launches from ``train_sugar_refine``'s 10 steps) and at
+     the dynamic SuGaR field's 256^2 random and 512^2 reference views
+     (``@sugar_dyn256`` / ``@sugar_dyn512``, launches from
+     ``train_sugar_dynamic``'s 10 steps); one K5 row per shape and type;
      ``ms`` and ``library_ms`` wrapper times, ``device_ms`` and
      ``library_device_ms`` device times; K5's bound the largest of its
      bytes, its products and its exponentials on the SFU at the card's
@@ -233,6 +257,19 @@ SUGAR_PRUNE_THRESHOLD = 0.06
 # renderers' default ceiling of 2^21 (where the JAX package, with the same
 # ceiling, drops the deepest): the sugar stage renders under 2^24
 SUGAR_MAX_PAIRS = 2**24
+# dynamic SuGaR: sugar_dynamic_dg_zero123.yaml at its widths (32 frames, 8
+# reference views at 512^2, 2 x 8 random views at 256^2, so the temporal
+# Zero123's CFG batch is 32: 32 x 8 heads of 32^2 tokens at d = 40) on the
+# refined SuGaR mesh, then sugar_dynamic.yaml (discrete, spline),
+# sugar_drag.yaml (1 frame, no spline; CFG batch 2 x 1: 16 heads) and
+# sugar_dynamic_dg.yaml for a few steps each
+SUGAR_DYN_CONFIG = os.path.join(CONFIG_DIR, "sugar_dynamic_dg_zero123.yaml")
+SUGAR_DYN_STEPS = 10
+SUGAR_DYN_SHORT_STEPS = 3
+K5_SUGAR_DYN_SHAPES = ((256, 1024, 40),)
+K5_SUGAR_DRAG_SHAPES = ((16, 1024, 40),)
+K5_SUGAR_DYN_CHECKS = ((256, 1024, 40, "bfloat16", False), (256, 1024, 40, "bfloat16", True),
+                       (16, 1024, 40, "bfloat16", False), (16, 1024, 40, "bfloat16", True))
 # the synthetic tokenizer's merges come from these lines
 TOKENIZER_CORPUS = (
     "a hamburger, a DSLR photo of a delicious hamburger on a wooden plate. a zoomed out "
@@ -1537,8 +1574,10 @@ def sugar_run(torch, native, label, argv, keys, channels):
 
 def train_sugar(torch, native):
     """SuGaR static, both stages (phase 11).  Returns the sugar stage's
-    launches and K1-K4's inputs at a 512^2 view of its refined field."""
+    launches, K1-K4's inputs at a 512^2 view of its refined field and the
+    path of the refined mesh's OBJ."""
     from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.models.mesh_extract import save_obj
     from threestudio_3dgs_tpu_torch.models.ply_io import read_ply_table
     from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
 
@@ -1611,6 +1650,9 @@ def train_sugar(torch, native):
         + f"; {n_ply} PLY vertices; launches {launches}, K1/K2 by channels {by_c}")
     inp = view_inputs(sugar_view(torch, st), seed=7, max_pairs=SUGAR_MAX_PAIRS)
     ckpt_s = os.path.join(st.save_dir, "ckpts", "last.ckpt.npz")
+    # the refined mesh, which the dynamic phase binds
+    obj = os.path.join(RUN_DIR, "sugar_refined.obj")
+    save_obj(obj, sugar.params.points.cpu().numpy(), sugar.faces.cpu().numpy())
     del st
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1627,12 +1669,233 @@ def train_sugar(torch, native):
         f"{time.perf_counter() - t0:.2f} s")
     del resumed
     torch.cuda.empty_cache()
-    return launches, inp
+    return launches, inp, obj
+
+
+def dynamic_view(torch, trainer, random_view):
+    """One view of the trained dynamic SuGaR field at its time: the first
+    random view of a training batch (256^2), or the first reference view
+    (512^2); the timed Gaussians, their SH colours from the camera and
+    their face normals as the extra channels (C = 7)."""
+    from threestudio_3dgs_tpu_torch.ops import camera as cam_mod
+    from threestudio_3dgs_tpu_torch.ops.rasterizer.preprocess import sh_colors
+
+    batch = trainer.data.train_batch(SUGAR_DYN_STEPS)
+    view = batch["random_camera"] if random_view else batch
+    size = int(view["height"])
+    fovy = float(view["fovy"][0])
+    cam = cam_mod.camera_from_c2w(view["c2w"][0], fovy, fovy, size, size,
+                                  device=trainer.device)
+    geo, state = trainer.system.geometry, trainer.state
+    with torch.no_grad():
+        a = geo.get_timed_gs_arrays(state.gauss, view["timestamp"][0],
+                                    int(view["frame_indices"][0]),
+                                    state.extra_params.get("deformation"))
+        colors = sh_colors(a["means3d"], a["sh_coeffs"], cam.campos, geo.active_sh_degree)
+    return dict(means=a["means3d"], scales=a["scales"], quats=a["quats"], opac=a["opacities"],
+                colors=colors, extra=a["normals"], cam=cam, alive=None,
+                tile_size=trainer.system.renderer.cfg.tile_size)
+
+
+def dynamic_run(torch, native, label, config, steps, extra, keys):
+    """One dynamic SuGaR YAML through launch.main for ``steps`` steps,
+    counters zeroed just before: every logged train/ value finite, ``keys``
+    logged each step, no pair dropped, K1-K4 launched and K1/K2 at 7
+    channels only.  Returns (trainer, launches, K5 launches by shape, wall
+    s, peak GiB)."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    trainer = launch.main(["--config", config, "--train", f"trainer.max_steps={steps}",
+                           "trainer.val_check_interval=0", "trainer.log_every_n_steps=1",
+                           f"system.renderer.max_pairs={SUGAR_MAX_PAIRS}",
+                           f"exp_root_dir={os.path.join(RUN_DIR, label)}"] + extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    by_c = {f"{fn}:{tag}": c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
+            if fn.startswith("blend_")}
+    k5 = {tag: c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
+          if fn == "flash_attention_forward"}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(trainer.metrics_log) != steps:
+        fail(f"{label}: {len(trainer.metrics_log)} logged steps")
+    check_4d_rows(torch, trainer.metrics_log, label, keys)
+    missing = [k for k in RASTER_KERNELS if launches[k] == 0]
+    want = {"blend_forward:C7": launches["blend_forward"],
+            "blend_backward:C7": launches["blend_backward"]}
+    if missing or by_c != want:
+        fail(f"{label}: kernels never launched {missing}; K1/K2 by channel count {by_c}, "
+             f"want {want}")
+    return trainer, launches, k5, wall, peak
+
+
+def node_moves(torch, trainer):
+    """How far each node track and each deformation parameter moved from
+    the initial state."""
+    init = trainer.system.init_state(trainer.cfg.seed)
+    gauss = trainer.state.gauss
+    moved = {k: float((getattr(gauss.params, k) - getattr(init.gauss.params, k)).abs().max())
+             for k in ("node_trans", "node_rots", "node_scales", "node_opacity")
+             if getattr(gauss.params, k) is not None}
+    deform = trainer.state.extra_params.get("deformation", {})
+    moved_deform = {k: float((v - init.extra_params["deformation"][k]).abs().max())
+                    for k, v in deform.items()}
+    return moved, {k: v for k, v in moved_deform.items() if v > 0}
+
+
+def train_sugar_dynamic(torch, native, obj, ckpt):
+    """Dynamic SuGaR (phase 12) on the refined mesh ``obj``: the four
+    YAMLs through launch.main.  Returns the main run's launches, K5's
+    launches at its shape and at sugar_drag's, and K1-K4's inputs at a
+    256^2 random view and at a 512^2 reference view of its trained
+    field."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.models.ply_io import read_ply_table
+    from threestudio_3dgs_tpu_torch.ops.flash_attention import shape_tag
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
+
+    bind = [f"system.geometry.surface_mesh_to_bind_path={obj}"]
+    guided = [f"system.guidance_zero123.pretrained_model_name_or_path={ckpt}"]
+    keys = ("train/loss_zero123_sds", "train/loss_ref_rgb", "train/psnr",
+            "train/loss_normal_consistency", "train/loss_normal_depth_consistency",
+            "train/loss_arap_reg", "train/loss_rgb_tv", "train/loss_normal_tv")
+    tr, launches, k5, wall, peak = dynamic_run(
+        torch, native, "sugar_dynamic_dg_zero123", SUGAR_DYN_CONFIG, SUGAR_DYN_STEPS,
+        bind + guided + ["data.random_camera.n_test_views=4"], keys)
+    rows = tr.metrics_log
+    for row in rows:
+        if not row["zero123/grad_norm"] > 0:
+            fail(f"sugar_dynamic_dg_zero123 step {row['step']}: grad_norm "
+                 f"{row['zero123/grad_norm']}")
+    guidance = tr.system.guidance
+    if guidance.unet is None or guidance.unet.cfg.dtype != torch.bfloat16:
+        fail("sugar_dynamic_dg_zero123: attach_video_frames did not build the bf16 denoiser")
+    want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * SUGAR_DYN_STEPS
+            for shape in K5_SUGAR_DYN_SHAPES}
+    if k5 != want or launches["flash_attention_forward"] != sum(want.values()):
+        fail(f"sugar_dynamic_dg_zero123: K5 by shape {k5}, want {want}")
+    gauss = tr.state.gauss
+    moved, moved_deform = node_moves(torch, tr)
+    # the deformation heads start at zero: only their last biases take a
+    # gradient at first, and only head_pos's is read (the position deltas)
+    heads = [k for k in moved_deform if not (k.startswith("head_") and k.endswith("/b"))]
+    if not moved_deform or heads or not moved["node_scales"] > 0:
+        fail(f"sugar_dynamic_dg_zero123: deformation params moved {moved_deform}, node tracks "
+             f"moved {moved}")
+    n_ply = len(read_ply_table(os.path.join(tr.save_dir, "save", "point_cloud.ply"))["x"])
+    n_test = len(os.listdir(os.path.join(tr.save_dir, "save", f"it{SUGAR_DYN_STEPS}-test")))
+    if n_ply != gauss.n_gaussians or n_test != 4:
+        fail(f"sugar_dynamic_dg_zero123: {n_ply} PLY vertices for {gauss.n_gaussians} "
+             f"Gaussians, {n_test} test renders")
+    rc = tr.data.random_camera_cfg
+    pairs = max(row["n_pairs_max"] for row in rows)
+    step_ms = [row["step_s"] * 1e3 for row in rows[1:]]
+    last = rows[-1]
+    cfg = tr.system.geometry.cfg
+    log(f"train_sugar_dynamic: {SUGAR_DYN_STEPS} steps of sugar_dynamic_dg_zero123.yaml bound to "
+        f"the refined mesh: {gauss.n_faces} faces, {gauss.params.points.shape[0]} vertices, "
+        f"{gauss.n_gaussians} Gaussians ({tr.system.geometry.n_per_face} a face), "
+        f"{gauss.nodes_xyz.shape[0]} nodes x {gauss.skin_idx.shape[1]} neighbours, "
+        f"{cfg.skinning_method}, {cfg.dynamic_mode}, d_scale {cfg.d_scale}; "
+        f"{tr.cfg.data['num_frames']} ref views at {tr.data.height}^2 of "
+        f"{tr.cfg.data['video_length']} frames, {rc.batch_size} random views at {rc.height}^2; "
+        f"temporal-stable-zero123-guidance on the random checkpoint, CFG batch "
+        f"{2 * rc.batch_size}): "
+        f"{wall:.2f} s wall incl. binding, loading and 4 test renders; median step (steps 2-"
+        f"{SUGAR_DYN_STEPS}) {statistics.median(step_ms):.1f} ms (min {min(step_ms):.1f}, max "
+        f"{max(step_ms):.1f}); peak device memory {peak:.2f} GiB; at most {pairs:.0f} pairs a view "
+        f"(ceiling {SUGAR_MAX_PAIRS}, 0 dropped); last "
+        + ", ".join(f"{k.split('/')[-1]} {last[k]:.6g}" for k in keys + ("train/loss_total",))
+        + f", grad_norm {last['zero123/grad_norm']:.6g}; node tracks moved {moved}; deformation "
+        f"params moved {moved_deform}; {n_ply} PLY vertices; launches {launches}, K5 by shape "
+        f"{k5}")
+    rand_inp = view_inputs(dynamic_view(torch, tr, True), seed=8, max_pairs=SUGAR_MAX_PAIRS)
+    ref_inp = view_inputs(dynamic_view(torch, tr, False), seed=9, max_pairs=SUGAR_MAX_PAIRS)
+    ckpt_d = os.path.join(tr.save_dir, "ckpts", "last.ckpt.npz")
+    del tr, guidance
+    torch.cuda.empty_cache()
+
+    # the resumed steps on the analytic prior: the checkpoint's state and
+    # step are what is checked, and the denoiser is held above
+    t0 = time.perf_counter()
+    resumed = launch.main(["--config", SUGAR_DYN_CONFIG, "--train", "--resume", ckpt_d,
+                           f"trainer.max_steps={SUGAR_DYN_STEPS + 2}",
+                           "trainer.val_check_interval=0", "data.random_camera.n_test_views=1",
+                           f"system.renderer.max_pairs={SUGAR_MAX_PAIRS}",
+                           f"exp_root_dir={os.path.join(RUN_DIR, 'sugar_dynamic_resume')}"] + bind)
+    if resumed.step != SUGAR_DYN_STEPS + 2 or len(resumed.metrics_log) != 2 or \
+            resumed.state.gauss.adam.count != SUGAR_DYN_STEPS + 2:
+        fail(f"sugar_dynamic_dg_zero123 --resume: step {resumed.step}, "
+             f"{len(resumed.metrics_log)} logged steps, Adam count "
+             f"{resumed.state.gauss.adam.count}")
+    check_4d_rows(torch, resumed.metrics_log, "sugar_dynamic_dg_zero123 --resume", keys)
+    log(f"train_sugar_dynamic --resume {os.path.relpath(ckpt_d, ROOT)} -> 2 more steps, last "
+        f"loss_total {resumed.metrics_log[-1]['train/loss_total']:.6g}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # the other YAMLs: sugar_dynamic.yaml with the inter-frame ARAP from step
+    # 1 (its YAML starts it at 10), sugar_drag.yaml on the checkpoint (K5 at
+    # its CFG batch of 2), sugar_dynamic_dg.yaml
+    drag_k5 = None
+    for name, extra, more in (
+            ("sugar_dynamic", ["system.freq.milestone_inter_frame_reg=1"],
+             ("train/loss_arap_reg", "train/loss_ref_xyz")),
+            ("sugar_drag", guided, ("train/loss_arap_reg", "train/loss_normal_consistency")),
+            ("sugar_dynamic_dg", [], ("train/loss_arap_reg", "train/loss_normal_tv"))):
+        run, run_launches, run_k5, wall, peak = dynamic_run(
+            torch, native, name, os.path.join(CONFIG_DIR, f"{name}.yaml"), SUGAR_DYN_SHORT_STEPS,
+            bind + extra + ["data.random_camera.n_test_views=1"], ("train/loss_zero123_sds",) + more)
+        moved, moved_deform = node_moves(torch, run)
+        geo_cfg = run.system.geometry.cfg
+        if geo_cfg.dynamic_mode == "discrete" and not (moved["node_trans"] > 0
+                                                       and moved["node_rots"] > 0):
+            fail(f"{name}: node tracks moved {moved}")
+        if geo_cfg.dynamic_mode == "deformation" and not moved_deform:
+            fail(f"{name}: the deformation params did not move")
+        note = ""
+        if name == "sugar_dynamic":
+            inter = [row.get("train/loss_arap_reg_inter_frame") for row in run.metrics_log]
+            if any(v is None for v in inter[1:]) or inter[0] is not None:
+                fail(f"sugar_dynamic: inter-frame ARAP at steps {inter}")
+            note = (f"; the inter-frame ARAP ({run.cfg.system['num_inter_frames']} times) at "
+                    f"steps 2-{SUGAR_DYN_SHORT_STEPS} (system.freq.milestone_inter_frame_reg=1 "
+                    f"on the command line; the YAML's is 10): {inter[1:]}")
+        if name == "sugar_drag":
+            want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * SUGAR_DYN_SHORT_STEPS
+                    for shape in K5_SUGAR_DRAG_SHAPES}
+            if run_k5 != want:
+                fail(f"sugar_drag: K5 by shape {run_k5}, want {want}")
+            drag_k5 = run_k5
+        elif run_k5:
+            fail(f"{name}: K5 launched {run_k5} on the analytic prior")
+        gauss = run.state.gauss
+        step_ms = [row["step_s"] * 1e3 for row in run.metrics_log[1:]]
+        last = run.metrics_log[-1]
+        log(f"train_{name}: {SUGAR_DYN_SHORT_STEPS} steps ({gauss.n_gaussians} Gaussians on "
+            f"{gauss.n_faces} faces, {gauss.nodes_xyz.shape[0]} nodes, {geo_cfg.dynamic_mode}, "
+            f"{geo_cfg.skinning_method}, spline {geo_cfg.use_spline}, "
+            f"{'the random checkpoint' if extra == guided else 'the analytic prior'}): {wall:.2f}"
+            f" s wall incl. binding and 1 test render; steps 2-{SUGAR_DYN_SHORT_STEPS} "
+            f"{', '.join(f'{ms:.1f}' for ms in step_ms)} ms; peak {peak:.2f} GiB; last "
+            + ", ".join(f"{k.split('/')[-1]} {last[k]:.6g}" for k in more + ("train/loss_total",))
+            + f"; moved {moved}{note}; launches {run_launches}, K5 {run_k5}")
+        del run
+        torch.cuda.empty_cache()
+    k5_launches = {shape: k5[shape_tag(*shape)] for shape in K5_SUGAR_DYN_SHAPES}
+    k5_launches.update({shape: drag_k5[shape_tag(*shape)] for shape in K5_SUGAR_DRAG_SHAPES})
+    return launches, k5_launches, rand_inp, ref_inp
 
 
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
     from threestudio_3dgs_tpu_torch.guidance.base import text_embedding
@@ -1768,12 +2031,26 @@ def main():
     k5_gs4d_times = time_flash(torch, K5_GS4D_SHAPES, torch.bfloat16)
 
     # SuGaR static: the gaussian stage (C = 4), then the sugar stage (C = 7)
-    sugar_launches, sugar_inp = train_sugar(torch, native)
+    sugar_launches, sugar_inp, sugar_obj = train_sugar(torch, native)
     sugar_errs = check_kernels(torch, sugar_inp, "sugar")
     log("SuGaR reference-view timing (512^2, the refined field, C = 7; these go in the kernels "
         "line):")
     sugar_timing = time_kernels(torch, sugar_inp, "sugar")
     del sugar_inp
+
+    # dynamic SuGaR on the refined mesh: K5 at the temporal guidance's CFG
+    # batches, the four YAMLs, K1-K4 at a timed random view and a ref view
+    k5_errs.update(check_flash(torch, K5_SUGAR_DYN_CHECKS, seed=80))
+    dyn_launches, dyn_k5, dyn_rand_inp, dyn_ref_inp = train_sugar_dynamic(torch, native,
+                                                                          sugar_obj, z123_ckpt)
+    dyn_errs, dyn_timing = {}, {}
+    for label, inp in (("sugar_dyn256", dyn_rand_inp), ("sugar_dyn512", dyn_ref_inp)):
+        dyn_errs[label] = check_kernels(torch, inp, label)
+        log(f"dynamic SuGaR {label} timing (the trained dynamic field at its view's time, C = 7; "
+            f"these go in the kernels line):")
+        dyn_timing[label] = time_kernels(torch, inp, label)
+    del dyn_rand_inp, dyn_ref_inp
+    k5_dyn_times = time_flash(torch, K5_SUGAR_DYN_SHAPES + K5_SUGAR_DRAG_SHAPES, torch.bfloat16)
 
     # (row name, kernel, launches, max abs error, timings): K1-K4 at the
     # trained view, the MVDream view, the zero123 ref view and the 4D
@@ -1801,6 +2078,12 @@ def main():
              for bh, n, d in K5_GS4D_SHAPES]
     rows += [(f"{name}@sugar", name, sugar_launches[name], sugar_errs[name], sugar_timing[name])
              for name in raster]
+    rows += [(f"{name}@{label}", name, dyn_launches[name], dyn_errs[label][name],
+              dyn_timing[label][name]) for label in ("sugar_dyn256", "sugar_dyn512")
+             for name in raster]
+    rows += [(f"flash_attention_forward@{bh}x{n}x{d}", "flash_attention_forward",
+              dyn_k5[(bh, n, d)], k5_errs[(bh, n, d, "bfloat16")], k5_dyn_times[(bh, n, d)])
+             for bh, n, d in K5_SUGAR_DYN_SHAPES + K5_SUGAR_DRAG_SHAPES]
     # K6 is on no training path: its launches are its checks', its time the
     # bench scene's
     rows.append(("expand_slots", "expand_slots", k6_launches, k6_err, k6_time))
@@ -1822,6 +2105,7 @@ def main():
             "library_ms": t["library_ms"],
             "library_device_ms": t["library_device_ms"],
         })
+    log(f"smoke run: {time.perf_counter() - t_start:.1f} s wall, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

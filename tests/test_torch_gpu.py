@@ -1016,3 +1016,104 @@ def test_sugar_zero123_yamls_on_card(cuda, tmp_path):
     assert "train/loss_normal_depth_consistency" in t.metrics_log[-1]
     ply = read_ply_table(os.path.join(t.save_dir, "save", "point_cloud.ply"))
     assert len(ply["x"]) == t.state.gauss.n_gaussians > 0
+
+
+# ---------------------------------------------------------------------------
+# dynamic SuGaR: the four YAMLs, K5 at the temporal guidance's CFG batches,
+# K1/K2 at C = 7 on a timed view
+# ---------------------------------------------------------------------------
+
+
+def write_icosphere_obj(path, subdivisions):
+    from threestudio_3dgs_tpu_torch.models.mesh_extract import save_obj
+    from threestudio_3dgs_tpu_torch.ops.mesh import icosphere
+
+    verts, faces = icosphere(subdivisions)
+    save_obj(str(path), verts, faces)
+    return len(faces)
+
+
+@pytest.mark.parametrize("yaml", ["sugar_dynamic", "sugar_dynamic_dg", "sugar_dynamic_dg_zero123",
+                                  "sugar_drag"])
+def test_sugar_dynamic_yamls_on_card(cuda, tmp_path, yaml):
+    """Each dynamic SuGaR YAML at its own widths, bound to a 5,120-face
+    icosphere, 2 steps through the launcher on the card on the temporal
+    Zero123 guidance's analytic prior: finite losses, no dropped pairs,
+    K1/K2 at 7 channels only, the node tracks (discrete) or the
+    deformation network (deformation) trained, the PLY of every bound
+    Gaussian."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.models.ply_io import read_ply_table
+
+    n_faces = write_icosphere_obj(tmp_path / "mesh.obj", 4)
+    native.reset_launches()
+    t = launch.main(["--config", os.path.join(CONFIG_DIR, f"{yaml}.yaml"), "--train",
+                     "trainer.max_steps=2", "trainer.val_check_interval=0",
+                     "data.random_camera.n_test_views=1",
+                     f"system.geometry.surface_mesh_to_bind_path={tmp_path / 'mesh.obj'}",
+                     f"exp_root_dir={tmp_path / 'run'}"])
+    torch.cuda.synchronize()
+    assert set(native.SHAPE_LAUNCHES) == {("blend_forward", "C7"), ("blend_backward", "C7")}
+    assert all(native.LAUNCHES[k] > 0 for k in RASTER_KERNELS)
+    assert len(t.metrics_log) == 2 and t.state.gauss.n_faces == n_faces
+    for row in t.metrics_log:
+        assert row["n_dropped_pairs"] == 0
+        assert all(np.isfinite(v) for k, v in row.items() if k.startswith("train/"))
+        assert "train/loss_arap_reg" in row
+    init = t.system.init_state(t.cfg.seed)
+    params, init_params = t.state.gauss.params, init.gauss.params
+    if t.system.geometry.cfg.dynamic_mode == "discrete":
+        assert float((params.node_trans - init_params.node_trans).abs().max()) > 0
+    else:
+        deform = t.state.extra_params["deformation"]
+        assert any(not torch.equal(v, init.extra_params["deformation"][k])
+                   for k, v in deform.items())
+    ply = read_ply_table(os.path.join(t.save_dir, "save", "point_cloud.ply"))
+    assert len(ply["x"]) == t.state.gauss.n_gaussians
+
+
+@pytest.mark.parametrize("bh,rising", [(256, False), (256, True), (16, False), (16, True)],
+                         ids=["cfg32", "cfg32_rising", "cfg2", "cfg2_rising"])
+@torch.no_grad()
+def test_flash_attention_sugar_dynamic_shapes(cuda, bh, rising):
+    """K5 in bf16 at the temporal Zero123's level-0 self-attention on the
+    dynamic SuGaR YAMLs: (256, 1024, 40) (CFG batch 2 x 16 views, 8 heads)
+    and (16, 1024, 40) (sugar_drag: 2 x 1 view), on standard normal and on
+    rising keys, to 2^-6 of max|plain| (k5_tolerance)."""
+    q, k, v = k5_inputs(bh, 1024, torch.bfloat16, seed=3, rising=rising, d=40)
+    got = fa.flash_bhnd_cuda(q, k, v, 40**-0.5)
+    want = fa.flash_bhnd_torch(q, k, v, 40**-0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) <= k5_tolerance(want)
+
+
+@torch.no_grad()
+def test_blend_kernels_on_timed_sugar_view(cuda, tmp_path):
+    """K1/K2 at C = 7 (rgb, depth, face normals) on a 256^2 view of a dynamic
+    SuGaR field at t = 0.3 (a 5,120-face icosphere, 6 Gaussians a face,
+    DQS over random node tracks, tile 32 as the YAMLs render), against
+    their plain versions with bitwise reruns."""
+    from threestudio_3dgs_tpu_torch.models.dynamic_sugar import DynamicSuGaRModel
+    from threestudio_3dgs_tpu_torch.ops.rasterizer.preprocess import sh_colors
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
+
+    write_icosphere_obj(tmp_path / "mesh.obj", 4)
+    geo = DynamicSuGaRModel(dict(surface_mesh_to_bind_path=str(tmp_path / "mesh.obj"),
+                                 n_gaussians_per_surface_triangle=6, skinning_method="dqs",
+                                 n_dg_nodes=64, num_frames=6), device=cuda)
+    state = geo.init_state(0)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    p = state.params
+    p.node_trans = torch.randn(p.node_trans.shape, generator=gen, device=cuda) * 0.05
+    p.node_rots = p.node_rots + torch.randn(p.node_rots.shape, generator=gen, device=cuda) * 0.2
+    a = geo.get_timed_gs_arrays(state, 0.3, 1)
+    cam = pcam.camera_from_c2w(lookat_c2w([0.0, -2.0, 0.4]), 0.86, 0.86, 256, 256, device=cuda)
+    colors = sh_colors(a["means3d"], a["sh_coeffs"], cam.campos, geo.active_sh_degree)
+    inp = view_inputs(dict(means=a["means3d"], scales=a["scales"], quats=a["quats"],
+                           opac=a["opacities"], colors=colors, extra=a["normals"], cam=cam,
+                           alive=None, tile_size=32), seed=5)
+    assert inp["dims"][3] == 7 and inp["bins"].n_pairs > 0
+    native.reset_launches()
+    check_blend_kernels(inp["pair_feats"], inp["bins"].tile_ranges, inp["g_out"], inp["dims"])
+    assert native.SHAPE_LAUNCHES == {("blend_forward", "C7"): 2, ("blend_backward", "C7"): 2}

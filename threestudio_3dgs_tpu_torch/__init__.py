@@ -8,21 +8,26 @@ take.  Importing the package imports neither JAX nor the JAX package and
 builds nothing.
 
   ops/        math core, rasterizer (projection, binning, blend) and kernels,
-              Lie-group and spline ops, ARAP, SuGaR's regularisers
+              Lie-group, spline and dual-quaternion ops, meshes, ARAP,
+              SuGaR's regularisers
   models/     fixed-capacity Gaussian field (with densify / prune), the
-              spacetime field and its deformation network, Adam, state
-              conversion, PLY I/O, mesh extraction and export
+              spacetime field and its deformation network, SuGaR's
+              mesh-bound Gaussians (static and dynamic), Adam, state
+              conversion, PLY I/O, mesh extraction and export, heat-method
+              geodesics
   renderers/  diff-gaussian-rasterizer and its -advanced, -background,
-              -normal and -shading variants, and the spacetime renderer
+              -normal and -shading variants, the spacetime renderer and
+              the SuGaR renderers (-normal, -shading, -temporal)
   materials/  no-material and the point-light material
   backgrounds/ solid colour and the neural environment map
-  guidance/   SDS math, the fake SDS guidance, Stable Diffusion, MVDream /
-              ImageDream, the CLIP tokenizer and text encoder
+  guidance/   SDS math, the fake and analytic-scene guidances, Stable
+              Diffusion, MVDream / ImageDream, Zero123, the CLIP tokenizer,
+              text encoder and image tower
   diffusion/  the UNet (multiview too) and VAE of the diffusion guidance
   data/       random-camera sampler, the fixed eval circles, the single
               image and the video frames
-  systems/    the text-to-3D, multi-view, image-to-3D and video-to-4D
-              training steps and their eval renders
+  systems/    the text-to-3D, multi-view, image-to-3D, video-to-4D and
+              SuGaR (static and 4D) training steps and their eval renders
   utils/      registry, config system, losses, checkpoints, image saving
 """
 

@@ -1,7 +1,8 @@
-"""Gaussian fields (static, spacetime and mesh-bound SuGaR), the
-deformation network, the optimiser, cross-package state conversion, PLY
-I/O and the mesh exporter."""
+"""Gaussian fields (static, spacetime, and mesh-bound SuGaR, static and
+dynamic), the deformation network, the optimiser, cross-package state
+conversion, PLY I/O, the mesh exporter and the host-side mesh tools (the
+decimator, heat-method geodesics)."""
 
 from . import gaussian_field  # noqa: F401
 from . import spacetime, gaussian_dynamic  # noqa: F401
-from . import exporter, sugar  # noqa: F401
+from . import exporter, sugar, dynamic_sugar  # noqa: F401

@@ -10,8 +10,11 @@ deformation network's nested tree, and their Adam moments, flattened to
 slash-joined names), which the port cannot draw itself: the JAX package
 draws them from a JAX PRNG.  ``sugar_state_from_numpy`` carries a JAX
 ``SuGaRState`` (the mesh-bound params, their Adam moments and count, the
-faces, the barycentric table and the thickness).  Only attribute access is
-used, so nothing of the JAX package is imported here."""
+faces, the barycentric table and the thickness), and
+``dynamic_sugar_state_from_numpy`` a JAX ``DynamicSuGaRState`` (those, the
+node tracks and their moments, the rest node positions and the skinning
+tables).  Only attribute access is used, so nothing of the JAX package is
+imported here."""
 
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from .gaussian_field import STAT_FIELDS, GaussianParams, GaussianState
 from .optim import AdamState
 from .spacetime import TEMPORAL_FIELDS, SpacetimeParams
+from .dynamic_sugar import GRAPH_FIELDS, DynamicSuGaRParams, DynamicSuGaRState
 from .sugar import SuGaRParams, SuGaRState
 
 
@@ -107,20 +111,43 @@ def sugar_state_from_numpy(tree: Any, device="cuda") -> SuGaRState:
     )
 
 
+def dynamic_sugar_state_from_numpy(tree: Any, device="cuda") -> DynamicSuGaRState:
+    """A host-side JAX ``DynamicSuGaRState`` -> the port's (the optional
+    node tracks where the JAX state has them)."""
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    def fields(t):
+        return {k: dev(getattr(t, k)) for k in DynamicSuGaRParams.FIELDS
+                if getattr(t, k, None) is not None}
+
+    return DynamicSuGaRState(
+        params=DynamicSuGaRParams(**fields(tree.params)),
+        adam=AdamState(mu=fields(tree.adam.mu), nu=fields(tree.adam.nu),
+                       count=int(np.asarray(tree.adam.count))),
+        faces=dev(tree.faces, torch.int64), bary=dev(tree.bary), thickness=dev(tree.thickness),
+        nodes_xyz=dev(tree.nodes_xyz), skin_idx=dev(tree.skin_idx, torch.int64),
+        skin_w=dev(tree.skin_w),
+    )
+
+
 def to_numpy(state: Any) -> Dict[str, Any]:
     """Nested dict of numpy arrays with the JAX state's field names (a
-    Gaussian field's or a ``SuGaRState``'s)."""
+    Gaussian field's, a ``SuGaRState``'s or a ``DynamicSuGaRState``'s)."""
 
     def host(t):
         return t.detach().cpu().numpy()
 
     if isinstance(state, SuGaRState):
+        buffers = ("faces", "bary", "thickness") + (
+            GRAPH_FIELDS if isinstance(state, DynamicSuGaRState) else ())
         return {
             "params": {k: host(v) for k, v in state.params.as_dict().items()},
             "adam": {"mu": {k: host(v) for k, v in state.adam.mu.items()},
                      "nu": {k: host(v) for k, v in state.adam.nu.items()},
                      "count": state.adam.count},
-            **{k: host(getattr(state, k)) for k in ("faces", "bary", "thickness")},
+            **{k: host(getattr(state, k)) for k in buffers},
         }
     return {
         "params": {k: host(v) for k, v in state.params.as_dict().items()},

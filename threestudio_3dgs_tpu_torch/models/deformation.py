@@ -81,7 +81,12 @@ def init_deformation_params(cfg: DeformationConfig, generator: torch.Generator,
 
 def _grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Bilinear sample of plane (C, H, W) at coords (N, 2) in [-1, 1]
-    (align-corners, border clamped; the fraction clipped to [0, 1])."""
+    (align-corners, border clamped; the fraction clipped to [0, 1]).  The
+    corners are gathered from the flattened plane by ``index_select``,
+    whose backward adds with atomics: advanced indexing's backward walks
+    each cell's duplicates serially on the card, and every point of one
+    time shares a time plane's row (231,773 mesh vertices on dynamic
+    SuGaR's planes)."""
     c, h, w = plane.shape
     x = (coords[:, 0] + 1.0) * 0.5 * (w - 1)
     y = (coords[:, 1] + 1.0) * 0.5 * (h - 1)
@@ -92,10 +97,13 @@ def _grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     fx = torch.clamp(x - x0, 0.0, 1.0)
     fy = torch.clamp(y - y0, 0.0, 1.0)
     x0i, x1i, y0i, y1i = (v.long() for v in (x0, x1, y0, y1))
-    p00 = plane[:, y0i, x0i]  # (C, N)
-    p01 = plane[:, y0i, x1i]
-    p10 = plane[:, y1i, x0i]
-    p11 = plane[:, y1i, x1i]
+    flat = plane.reshape(c, h * w)
+
+    def corner(yi, xi):
+        return torch.index_select(flat, 1, yi * w + xi)  # (C, N)
+
+    p00, p01 = corner(y0i, x0i), corner(y0i, x1i)
+    p10, p11 = corner(y1i, x0i), corner(y1i, x1i)
     top = p00 * (1 - fx) + p01 * fx
     bot = p10 * (1 - fx) + p11 * fx
     return (top * (1 - fy) + bot * fy).T  # (N, C)

@@ -285,7 +285,7 @@ class SuGaRModel:
                         lrs: Dict[str, float]) -> SuGaRState:
         """One Adam step (eps 1e-15) over every param."""
         new = adam_update(state.params.as_dict(), grads, state.adam, lrs)
-        return dataclasses.replace(state, params=SuGaRParams(**new))
+        return dataclasses.replace(state, params=dataclasses.replace(state.params, **new))
 
     def accumulate_stats(self, state: SuGaRState, *_) -> SuGaRState:
         """No densify statistics."""

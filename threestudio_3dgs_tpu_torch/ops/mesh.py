@@ -57,15 +57,19 @@ class MeshTopology(NamedTuple):
 def build_topology(faces: np.ndarray, n_verts: int, max_degree: int = 16) -> MeshTopology:
     """The first two faces of every edge shared by two or more faces (edges
     in first-seen order), and the padded one-ring."""
-    edge_map = {}
-    for fi, tri in enumerate(faces):
-        for a in range(3):
-            i, j = int(tri[a]), int(tri[(a + 1) % 3])
-            edge_map.setdefault((min(i, j), max(i, j)), []).append(fi)
-    pairs = [fs[:2] for fs in edge_map.values() if len(fs) >= 2]
-    edge_faces = np.asarray(pairs, np.int32) if pairs else np.zeros((0, 2), np.int32)
+    f = np.asarray(faces, np.int64).reshape(-1, 3)
+    i, j = f, np.roll(f, -1, axis=1)
+    key = (np.minimum(i, j) * n_verts + np.maximum(i, j)).reshape(-1)  # face-major
+    order = np.argsort(key, kind="stable")  # each edge's faces stay in face order
+    sk = key[order]
+    starts = np.flatnonzero(np.concatenate([[True], sk[1:] != sk[:-1]]))
+    sizes = np.diff(np.concatenate([starts, [len(sk)]]))
+    shared = starts[sizes >= 2]
+    first, second = order[shared], order[shared + 1]
+    seen = np.argsort(first)  # edges in first-seen order
+    edge_faces = np.stack([first[seen] // 3, second[seen] // 3], axis=1).astype(np.int32)
     nbr_idx, nbr_mask = build_one_ring(faces, n_verts, max_degree)
-    return MeshTopology(edge_faces, nbr_idx, nbr_mask)
+    return MeshTopology(edge_faces.reshape(-1, 2), nbr_idx, nbr_mask)
 
 
 def normal_consistency_loss(verts: torch.Tensor, faces: torch.Tensor,

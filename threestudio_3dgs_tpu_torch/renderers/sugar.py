@@ -16,7 +16,9 @@ the card).  Per view:
 
 The kernel background follows the Gaussian renderers' rule (inverted on a
 draw in training, always at eval).  ``diff-sugar-rasterizer-temporal``
-needs the dynamic SuGaR geometry, not ported yet."""
+renders the dynamic SuGaR geometry (``models/dynamic_sugar.py``) at each
+view's timestamp and frame index (0 and 0 where the batch has none), with
+the deformation network's parameters in mode "deformation"."""
 
 from __future__ import annotations
 
@@ -38,6 +40,11 @@ class SuGaRRendererBase(GaussianRendererBase):
     @staticmethod
     def state_device(gauss) -> torch.device:
         return gauss.params.points.device
+
+    def view_arrays(self, sugar_state, color_clip: float, timestamp=None, frame_idx=None,
+                    deformation_params=None) -> Dict[str, torch.Tensor]:
+        """The rasterizer's arrays of one view: the mesh-bound Gaussians."""
+        return self.geometry.as_gaussian_arrays(sugar_state, color_clip)
 
     def _post_view(self, out: Dict[str, Any], *, bg_params=None, rays_o=None, rays_d=None,
                    light_positions=None, generator=None, ambient_only: bool = False,
@@ -82,11 +89,15 @@ class SuGaRRendererBase(GaussianRendererBase):
                    means2d_offset: Optional[torch.Tensor] = None, override_color=None,
                    scaling_modifier: float = 1.0, ambient_ratio=None,
                    shading: Optional[str] = None,
-                   draws: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                   draws: Optional[Dict[str, Any]] = None, timestamp=None, frame_idx=None,
+                   deformation_params=None, knots=None) -> Dict[str, Any]:
+        """``timestamp``, ``frame_idx``, ``deformation_params``: the temporal
+        renderer's (``knots`` is the spacetime renderer's and unused)."""
         geo = self.geometry
         device = self.state_device(sugar_state)
         kernel_bg = self._kernel_bg(generator, training, device, draws)
-        arrays = geo.as_gaussian_arrays(sugar_state, color_clip)
+        arrays = self.view_arrays(sugar_state, color_clip, timestamp, frame_idx,
+                                  deformation_params)
         out = rasterize(
             arrays["means3d"], arrays["scales"], arrays["quats"], arrays["opacities"], camera,
             kernel_bg, sh_coeffs=arrays["sh_coeffs"], sh_degree=geo.active_sh_degree,
@@ -109,3 +120,15 @@ class DiffSugarRasterizerNormal(SuGaRRendererBase):
 @register("diff-sugar-rasterizer-shading")
 class DiffSugarRasterizerShading(SuGaRRendererBase):
     with_shading = True
+
+
+@register("diff-sugar-rasterizer-temporal")
+class DiffSugarRasterizerTemporal(SuGaRRendererBase):
+    temporal = True
+
+    def view_arrays(self, sugar_state, color_clip: float, timestamp=None, frame_idx=None,
+                    deformation_params=None) -> Dict[str, torch.Tensor]:
+        """The dynamic geometry's Gaussians at the view's time."""
+        return self.geometry.get_timed_gs_arrays(
+            sugar_state, 0.0 if timestamp is None else timestamp,
+            0 if frame_idx is None else frame_idx, deformation_params, color_clip)

@@ -42,7 +42,7 @@ from ..utils.loss import psnr
 from ..utils.registry import find, register
 from .base import SystemState, flatten_extra
 from .gaussian_zero123 import Zero123System, Zero123SystemConfig
-from .sugar_static import GaussianStageRegMixin, alive_knn
+from .sugar_static import GaussianStageRegMixin, alive_knn, build_guidance_2d
 
 
 @dataclasses.dataclass
@@ -71,11 +71,7 @@ class Gaussian4DGenSystem(GaussianStageRegMixin, Zero123System):
         if cfg.guidance_zero123_type:
             self.guidance = find(cfg.guidance_zero123_type)(cfg.guidance_zero123,
                                                             device=self.device)
-        self.guidance_2d = (find(cfg.guidance_2d_type)(cfg.guidance_2d, device=self.device)
-                            if cfg.guidance_2d_type else None)
-        pp2 = (find(cfg.prompt_processor_2d_type)(cfg.prompt_processor_2d, device=self.device)
-               if cfg.prompt_processor_2d_type else None)
-        self.prompt_utils_2d = pp2() if pp2 else None
+        self.guidance_2d, self.prompt_utils_2d = build_guidance_2d(cfg, self.device)
         self._arap_nbrs: Optional[torch.Tensor] = None
         self._arap_step = -(10 ** 9)
         self.arap_k = int(cfg.freq.get("arap_k", 8))

@@ -31,7 +31,7 @@ samples in.  ``--predict``'s textured-mesh bake is not ported: it raises."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -68,6 +68,16 @@ def alive_knn(xyz: torch.Tensor, alive: torch.Tensor, k: int, exclude_self: bool
         _, idx = knn_ops.knn(pts, pts, k=kk, exclude_self=exclude_self)
         table[rows, :kk] = rows[idx]
     return table
+
+
+def build_guidance_2d(cfg, device) -> Tuple[Any, Any]:
+    """The optional 2D-diffusion guidance of ``guidance_2d_type`` and the
+    prompts of ``prompt_processor_2d_type`` (None for either unset)."""
+    guidance = (find(cfg.guidance_2d_type)(cfg.guidance_2d, device=device)
+                if cfg.guidance_2d_type else None)
+    pp2 = (find(cfg.prompt_processor_2d_type)(cfg.prompt_processor_2d, device=device)
+           if cfg.prompt_processor_2d_type else None)
+    return guidance, pp2() if pp2 else None
 
 
 class GaussianStageRegMixin:
@@ -165,11 +175,7 @@ class SugarStaticSystem(GaussianStageRegMixin, Zero123System):
             sugar_dict.setdefault("n_samples_for_sdf_regularization",
                                   cfg.n_samples_for_sugar_sdf_reg)
         self._init_sugar_stage(sugar_dict)
-        self.guidance_2d = (find(cfg.guidance_2d_type)(cfg.guidance_2d, device=self.device)
-                            if cfg.guidance_2d_type else None)
-        pp2 = (find(cfg.prompt_processor_2d_type)(cfg.prompt_processor_2d, device=self.device)
-               if cfg.prompt_processor_2d_type else None)
-        self.prompt_utils_2d = pp2() if pp2 else None
+        self.guidance_2d, self.prompt_utils_2d = build_guidance_2d(cfg, self.device)
         self.step_draws: Optional[Callable[[int], Dict[str, Any]]] = None
         self._draws: Dict[str, Any] = {}
         if cfg.stage == "sugar":

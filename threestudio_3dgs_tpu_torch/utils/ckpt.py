@@ -13,6 +13,9 @@ extra parameters (``extra/params/deformation/grids/0/0``, ...).
 A SuGaR state is saved as ``gauss/params/points``, ...,
 ``gauss/adam/mu/points``, ..., ``gauss/faces``, ``gauss/bary`` and
 ``gauss/thickness``; a checkpoint that holds ``gauss/faces`` loads as one.
+A dynamic SuGaR state adds its node tracks (``gauss/params/node_trans``,
+..., with their moments), ``gauss/nodes_xyz``, ``gauss/skin_idx`` and
+``gauss/skin_w``, and loads as one where it holds ``gauss/nodes_xyz``.
 
 ``load_checkpoint`` reads the port's own files only.  A JAX package
 checkpoint stores its leaves by position beside a pickled JAX treedef,
@@ -29,6 +32,7 @@ import torch
 
 from ..models.convert import to_numpy
 from ..models.gaussian_field import STAT_FIELDS, GaussianParams, GaussianState
+from ..models.dynamic_sugar import GRAPH_FIELDS, DynamicSuGaRParams, DynamicSuGaRState
 from ..models.optim import AdamState
 from ..models.spacetime import TEMPORAL_FIELDS, SpacetimeParams
 from ..models.sugar import SuGaRParams, SuGaRState
@@ -69,16 +73,21 @@ def load_checkpoint_arrays(path: str) -> Tuple[Dict[str, np.ndarray], int]:
 
 
 def _sugar_from_arrays(arrays: Dict[str, np.ndarray], device) -> SuGaRState:
+    """A SuGaR state, dynamic where the arrays hold its graph."""
+    dynamic = "gauss/nodes_xyz" in arrays
+    params_cls, state_cls = ((DynamicSuGaRParams, DynamicSuGaRState) if dynamic
+                             else (SuGaRParams, SuGaRState))
+    buffers = ("faces", "bary", "thickness") + (GRAPH_FIELDS if dynamic else ())
+
     def fields(prefix):
         return {k: torch.as_tensor(arrays[f"gauss/{prefix}{k}"], device=device)
-                for k in SuGaRParams.FIELDS}
+                for k in params_cls.FIELDS if f"gauss/{prefix}{k}" in arrays}  # optional ones
 
-    return SuGaRState(
-        params=SuGaRParams(**fields("params/")),
+    return state_cls(
+        params=params_cls(**fields("params/")),
         adam=AdamState(mu=fields("adam/mu/"), nu=fields("adam/nu/"),
                        count=int(arrays["gauss/adam/count"])),
-        **{k: torch.as_tensor(arrays[f"gauss/{k}"], device=device)
-           for k in ("faces", "bary", "thickness")},
+        **{k: torch.as_tensor(arrays[f"gauss/{k}"], device=device) for k in buffers},
     )
 
 
