@@ -89,7 +89,12 @@ Phases, each of which fails the run with a non-zero exit:
      two bf16 ones; (b): (10, 4096, 64) and (20, 1024, 64) in f32; (c):
      none) and the background MLP moved; then K1-K4 are held and timed at
      one 256^2 view of the trained MVDream field, and K5 timed in f32 at
-     MVDream's shapes;
+     MVDream's shapes; then ``train_mvdream_pred_normal``: 3 steps of the
+     MVDream YAML with ``system.geometry.pred_normal=true`` and
+     ``system.loss.lambda_pred_normal=1`` (train_lit's checks): K1/K2 at 7
+     channels only (rgb, depth, the field's normal), train/loss_pred_normal
+     finite and > 0 each step, the normal field moved; K1-K4 held and timed
+     at one 256^2 view of that field (C = 7);
   9. image-to-3D: hold K5 at Stable Zero123's head dim, d = 40, against its
      plain version ((64, 1024, 40) bf16 on standard normal and on rising
      keys, a ragged (64, 1000, 40) bf16, (16, 1024, 40) f32 and the same at
@@ -110,7 +115,15 @@ Phases, each of which fails the run with a non-zero exit:
      analytic prior, as in the JAX package); then warm starts from the
      run's ``.ckpt.npz`` and its PLY, each loaded field equal to the saved
      one, and 2 steps from each, and ``--export --resume`` its checkpoint
-     (an OBJ with faces); time K5 at (64, 1024, 40) bf16;
+     (an OBJ with faces); time K5 at (64, 1024, 40) bf16; then K5 past 64
+     columns (d = 72, 80, 128, 160 and 256 in bf16 at (64, 1024, d), the
+     first four in f32 at (16, 1024, d), d = 80 ragged and on rising keys,
+     (64, 4096, 40)) against its plain version, and ``zero123_guidance_512``:
+     3 calls of the guidance at ``cond_image_size=512`` on 4 x 512^2
+     renders: K5 exactly 5 times a call at (64, 4096, 40) and (64, 1024, 80)
+     and nowhere else, then the denoiser's output through K5 held against
+     the same call through the plain twin; K5 timed at both shapes and at
+     (64, 1024, 160);
  10. video-to-4D: hold K5 at the temporal Zero123's CFG batch, (320, 1024,
      40) bf16, on standard normal and rising keys; then ``train_gs4d``: 10
      steps of gs4d_motion.yaml through ``launch.main`` at its widths (10
@@ -146,7 +159,17 @@ Phases, each of which fails the run with a non-zero exit:
      at 7 channels only (rgb, depth, face normals), every loss finite, the
      mesh vertices moved, 4 test renders, the PLY of every bound Gaussian,
      2 more steps with ``--resume``; K1-K4 held and timed at a 512^2
-     reference view of the refined field (C = 7);
+     reference view of the refined field (C = 7); then ``bake_sugar``:
+     ``launch.main --predict --resume`` of the refined checkpoint with
+     ``system.postprocess=true`` and the 2^24 pair ceiling over the 120
+     test views: the OBJ (F faces, 3F vt rows), MTL and PNG (tex_size^2)
+     read back, K1 and K4 launched by the renders; the faces before and
+     after the postprocess, the texture size, the share of texels a view
+     saw, the id-pass's drop counters per view (max, sum), the wall seconds
+     of the renders, id-passes, texel init, scatters and file writes and
+     the peak device memory printed; one view's id-pass on the card held
+     against the same call on the CPU at 256^2 (face ids equal but at z
+     ties and edge pixels, counted and printed);
  12. dynamic SuGaR: hold K5 at the temporal Zero123's CFG batches on these
      YAMLs, (256, 1024, 40) and (16, 1024, 40) bf16, on standard normal and
      rising keys; write the refined mesh of phase 11 to an OBJ and bind it
@@ -173,13 +196,17 @@ Phases, each of which fails the run with a non-zero exit:
      from its checks, K5 at d = 40 from ``zero123_guidance``,
      ``train_gs4d`` and the dynamic SuGaR runs; times at the main path's
      shapes, K6's at the bench scene; K1-K4 rows at the trained 512^2 view,
-     at the MVDream view, at the zero123 YAML's 128^2 ref view (launches
+     at the MVDream view, at the pred_normal MVDream view (C = 7,
+     ``@mvdream_pn``, launches from ``train_mvdream_pred_normal``), at the
+     zero123 YAML's 128^2 ref view (launches
      from ``train_zero123``), at the 4D field's 256^2 reference-frame view
      (launches from ``train_gs4d``'s 10 steps), at the SuGaR field's 512^2
      view (C = 7, launches from ``train_sugar_refine``'s 10 steps) and at
      the dynamic SuGaR field's 256^2 random and 512^2 reference views
      (``@sugar_dyn256`` / ``@sugar_dyn512``, launches from
-     ``train_sugar_dynamic``'s 10 steps); one K5 row per shape and type;
+     ``train_sugar_dynamic``'s 10 steps); one K5 row per shape and type
+     (``@64x4096x40`` and ``@64x1024x80`` with launches from
+     ``zero123_guidance_512``);
      ``ms`` and ``library_ms`` wrapper times, ``device_ms`` and
      ``library_device_ms`` device times; K5's bound the largest of its
      bytes, its products and its exponentials on the SFU at the card's
@@ -270,6 +297,32 @@ K5_SUGAR_DYN_SHAPES = ((256, 1024, 40),)
 K5_SUGAR_DRAG_SHAPES = ((16, 1024, 40),)
 K5_SUGAR_DYN_CHECKS = ((256, 1024, 40, "bfloat16", False), (256, 1024, 40, "bfloat16", True),
                        (16, 1024, 40, "bfloat16", False), (16, 1024, 40, "bfloat16", True))
+# K5 past 64 columns: two to four 64-column boxes in bf16, two or three in
+# f32 (the last box zero-filled past d), on standard normal inputs, a
+# ragged n and, at Stable Zero123's level 1 (d = 80), keys in rising norm
+K5_WIDE_CHECKS = (tuple((64, 1024, d, "bfloat16", False) for d in (72, 80, 128, 160, 256))
+                  + tuple((16, 1024, d, "float32", False) for d in (72, 80, 128, 160))
+                  + ((64, 1000, 80, "bfloat16", False), (64, 1024, 80, "bfloat16", True),
+                     (64, 4096, 40, "bfloat16", False)))
+# timed beside SDPA: level 1 at a 512^2 conditioning image and level 2's
+# head dim at the same length (no shipped config routes it: 256 tokens there)
+K5_WIDE_SHAPES = ((64, 1024, 80), (64, 1024, 160))
+# Stable Zero123 at cond_image_size = 512, CFG batch 8: level 0 has 64^2
+# tokens at d = 40, level 1 32^2 at d = 80 (640 / 8); level 2's 256 tokens
+# take the einsum
+K5_Z512_SHAPES = ((64, 4096, 40), (64, 1024, 80))
+ZERO123_512_CALLS = 3
+# the denoiser's output through K5 against the same call through the plain
+# twin, relative L2: every activation of both runs is rounded to bf16
+# (relative step 2^-8), and K5's output is within two bf16 ulps of the
+# plain twin's
+Z512_DENOISER_REL = 2e-2
+# gaussian_splatting_mvdream.yaml with pred_normal: the field's normal
+# blended as 3 extra channels (K1/K2 at C = 7), the predicted-normal loss
+PRED_NORMAL_STEPS = 3
+PRED_NORMAL = ["system.geometry.pred_normal=true", "system.loss.lambda_pred_normal=1.0"]
+# the bake's id-pass on the card against the CPU at one view of this size
+BAKE_CPU_SIZE = 256
 # the synthetic tokenizer's merges come from these lines
 TOKENIZER_CORPUS = (
     "a hamburger, a DSLR photo of a delicious hamburger on a wooden plate. a zoomed out "
@@ -895,8 +948,8 @@ def check_clip_small(torch):
     report("clip-tiny", "clip_hidden", err, 1e-4 * scale, "card vs CPU, max|diff|")
 
 
-def train_lit(torch, native, name, config, extra, k5_shapes=()):
-    """LIT_STEPS steps of one of this slice's YAMLs through launch.main,
+def train_lit(torch, native, name, config, extra, k5_shapes=(), steps=LIT_STEPS):
+    """``steps`` steps of one of the lit YAMLs through launch.main,
     every counter zeroed just before: every logged loss finite, grad_norm
     > 0, K1-K4 launched, K5 launched 5 times a step at each of
     ``k5_shapes`` and nowhere else, and the background MLP moved.  Returns
@@ -906,7 +959,7 @@ def train_lit(torch, native, name, config, extra, k5_shapes=()):
     from threestudio_3dgs_tpu_torch.systems.base import flatten_extra
     from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
 
-    argv = ["--config", config, "--train", f"trainer.max_steps={LIT_STEPS}",
+    argv = ["--config", config, "--train", f"trainer.max_steps={steps}",
             "trainer.val_check_interval=0", "data.n_test_views=8",
             f"exp_root_dir={os.path.join(RUN_DIR, name)}"] + extra
     torch.cuda.reset_peak_memory_stats()
@@ -920,8 +973,8 @@ def train_lit(torch, native, name, config, extra, k5_shapes=()):
                       if fn == "flash_attention_forward"}
     peak = torch.cuda.max_memory_allocated() / 2**30
     rows = trainer.metrics_log
-    if len(rows) != LIT_STEPS:
-        fail(f"{name}: expected {LIT_STEPS} logged steps, got {len(rows)}")
+    if len(rows) != steps:
+        fail(f"{name}: expected {steps} logged steps, got {len(rows)}")
     for row in rows:
         bad = [k for k, v in row.items() if k.startswith("train/") and not np.isfinite(v)]
         if bad or not row["train/grad_norm"] > 0:
@@ -929,7 +982,7 @@ def train_lit(torch, native, name, config, extra, k5_shapes=()):
     missing = [k for k in RASTER_KERNELS if launches[k] == 0]
     if missing:
         fail(f"{name}: kernels never launched: {missing}")
-    want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * LIT_STEPS for shape in k5_shapes}
+    want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * steps for shape in k5_shapes}
     if shape_launches != want or launches["flash_attention_forward"] != sum(want.values()):
         fail(f"{name}: K5 launched {launches['flash_attention_forward']} times, by shape "
              f"{shape_launches}; want {want}")
@@ -937,16 +990,16 @@ def train_lit(torch, native, name, config, extra, k5_shapes=()):
     init = trainer.system.init_state(trainer.cfg.seed).extra_params
     moved = {k: float((v - flatten_extra(init)[k]).abs().max())
              for k, v in flatten_extra(state.extra_params).items()}
-    if not moved or min(moved.values()) <= 0 or state.extra_opt.count != LIT_STEPS:
+    if not moved or min(moved.values()) <= 0 or state.extra_opt.count != steps:
         fail(f"{name}: the background MLP did not train: {moved}")
     step_ms = [row["step_s"] * 1e3 for row in rows[1:]]
     cfg = trainer.cfg
-    log(f"{name}: {LIT_STEPS} steps of {os.path.basename(config)} "
+    log(f"{name}: {steps} steps of {os.path.basename(config)} "
         f"({cfg.system['renderer_type']}, {cfg.system['guidance_type']}) at "
         f"{trainer.data.train_sampler.height}x{trainer.data.train_sampler.width}, batch "
         f"{trainer.data.train_sampler.batch_size}: {wall:.2f} s wall incl. loading and 8 test "
         f"renders; "
-        f"median step (steps 2-{LIT_STEPS}) {statistics.median(step_ms):.1f} ms (min "
+        f"median step (steps 2-{steps}) {statistics.median(step_ms):.1f} ms (min "
         f"{min(step_ms):.1f}, max {max(step_ms):.1f}); peak device memory {peak:.2f} GiB; "
         f"last loss_total {rows[-1]['train/loss_total']:.6g}, grad_norm "
         f"{rows[-1]['train/grad_norm']:.6g}; background moved by up to "
@@ -1181,36 +1234,43 @@ def reference_rgba(size=512):
     return (np.concatenate([rgb * alpha, alpha], -1) * 255).round().astype(np.uint8)
 
 
-def zero123_guidance(torch, native, ckpt):
-    """Stable Zero123's guidance at its published widths: prepare_embeddings
-    on the reference frame, then ZERO123_CALLS calls with backward on
-    (4, 256, 256, 3) renders, counters zeroed just before: K5 exactly 5
-    times a call at (64, 1024, 40) and nowhere else, finite losses,
-    grad_norm > 0.  Returns K5's launches by shape."""
+def zero123_guidance(torch, native, ckpt, cond_size=256, calls=ZERO123_CALLS,
+                     shapes=K5_Z123_SHAPES, label="zero123_guidance"):
+    """Stable Zero123's guidance at its published widths and
+    ``cond_image_size`` = ``cond_size``: prepare_embeddings on the reference
+    frame, then ``calls`` calls with backward on (4, cond_size, cond_size,
+    3) renders, counters zeroed just before: K5 exactly 5 times a call at
+    each of ``shapes`` and nowhere else, finite losses, grad_norm > 0.  At a
+    conditioning size other than 256 the denoiser's output through K5 is
+    then held against the same call through K5's plain twin.  Returns K5's
+    launches by shape."""
     from threestudio_3dgs_tpu_torch.guidance.temporal_zero123 import StableZero123Guidance
+    from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
     from threestudio_3dgs_tpu_torch.ops.flash_attention import shape_tag
     from threestudio_3dgs_tpu_torch.utils.config import load_config
 
     cfg = load_config(ZERO123_CONFIG, [f"system.guidance.pretrained_model_name_or_path={ckpt}",
+                                       f"system.guidance.cond_image_size={cond_size}",
                                        "data.image_path="])
     t0 = time.perf_counter()
     guidance = StableZero123Guidance(dict(cfg.system["guidance"]), device="cuda")
-    frame = reference_rgba(256)[None, ..., :3].astype(np.float32) / 255.0
+    frame = reference_rgba(cond_size)[None, ..., :3].astype(np.float32) / 255.0
     guidance.prepare_embeddings(frame)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     if guidance.unet is None or guidance.unet.cfg.dtype != torch.bfloat16:
-        fail("zero123_guidance: the guidance did not build its bf16 denoiser")
+        fail(f"{label}: the guidance did not build its bf16 denoiser")
     rng = np.random.default_rng(0)
     batch = {"elevation": rng.uniform(-10, 80, 4).astype(np.float32),
              "azimuth": rng.uniform(-180, 180, 4).astype(np.float32),
              "camera_distances": np.full(4, 3.8, np.float32)}
-    rgb = torch.tensor(rng.uniform(size=(4, 256, 256, 3)).astype(np.float32), device="cuda")
+    rgb = torch.tensor(rng.uniform(size=(4, cond_size, cond_size, 3)).astype(np.float32),
+                       device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     native.reset_launches()
     times = []
-    for i in range(ZERO123_CALLS):
+    for i in range(calls):
         x = rgb.clone().requires_grad_(True)
         t1 = time.perf_counter()
         out = guidance(x, None, batch, generator=gen, sched=guidance.sched_scalars(100 * i))
@@ -1219,26 +1279,47 @@ def zero123_guidance(torch, native, ckpt):
         times.append((time.perf_counter() - t1) * 1e3)
         loss, gnorm = float(out["loss_sds"].detach()), float(out["grad_norm"])
         if not (np.isfinite(loss) and gnorm > 0 and bool(torch.isfinite(x.grad).all())):
-            fail(f"zero123_guidance call {i}: loss {loss}, grad_norm {gnorm}")
+            fail(f"{label} call {i}: loss {loss}, grad_norm {gnorm}")
     launches = dict(native.LAUNCHES)
     shape_launches = {tag: c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
                       if fn == "flash_attention_forward"}
-    want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * ZERO123_CALLS
-            for shape in K5_Z123_SHAPES}
+    want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * calls for shape in shapes}
     if shape_launches != want or launches["flash_attention_forward"] != sum(want.values()):
-        fail(f"zero123_guidance: K5 launched {launches['flash_attention_forward']} times, by "
+        fail(f"{label}: K5 launched {launches['flash_attention_forward']} times, by "
              f"shape {shape_launches}; want {want}")
     n_params = sum(p.numel() for p in guidance.unet.parameters())
-    log(f"zero123_guidance: {ZERO123_CALLS} calls of stable-zero123-guidance (ZERO123_UNET "
-        f"{n_params / 1e9:.3f} B parameters in bf16, CFG batch 8) on 4 x 256^2 renders with "
-        f"backward: load + prepare_embeddings {load_s:.1f} s; per call median "
-        f"{statistics.median(times[1:]):.1f} ms (min {min(times[1:]):.1f}, max "
-        f"{max(times[1:]):.1f}; calls 2-{ZERO123_CALLS}); peak device memory "
+    log(f"{label}: {calls} calls of stable-zero123-guidance at cond_image_size {cond_size} "
+        f"(ZERO123_UNET {n_params / 1e9:.3f} B parameters in bf16, CFG batch 8) on 4 x "
+        f"{cond_size}^2 renders with backward: load + prepare_embeddings {load_s:.1f} s; per "
+        f"call median {statistics.median(times[1:]):.1f} ms (min {min(times[1:]):.1f}, max "
+        f"{max(times[1:]):.1f}; calls 2-{calls}); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last loss_sds {loss:.6g}, "
         f"grad_norm {gnorm:.6g}; launches {launches}, K5 by shape {shape_launches}")
+    if cond_size != 256:
+        lat = cond_size // 8
+        noisy = torch.randn((4, 4, lat, lat), generator=gen, device="cuda")
+        t = torch.full((4,), 500, dtype=torch.int64, device="cuda")
+        frame_idx = torch.zeros(4, dtype=torch.int64, device="cuda")
+        cam_emb = guidance.camera_embedding(batch)
+        with torch.no_grad():
+            native.reset_launches()
+            got = torch.cat(guidance.denoiser(noisy, t, frame_idx, cam_emb)).float()
+            k5_calls = native.LAUNCHES["flash_attention_forward"]
+            kernel = fa.flash_bhnd_cuda
+            fa.flash_bhnd_cuda = fa.flash_bhnd_torch  # the plain twin on the card
+            try:
+                want_eps = torch.cat(guidance.denoiser(noisy, t, frame_idx, cam_emb)).float()
+            finally:
+                fa.flash_bhnd_cuda = kernel
+        if k5_calls != K5_PER_SHAPE_PER_UNET_CALL * len(shapes) or \
+                native.LAUNCHES["flash_attention_forward"] != k5_calls:
+            fail(f"{label}: the denoiser check launched K5 {k5_calls} times, then "
+                 f"{native.LAUNCHES['flash_attention_forward'] - k5_calls} through the plain twin")
+        report(label, "zero123_denoiser", float((got - want_eps).norm() / want_eps.norm()),
+               Z512_DENOISER_REL, "K5 vs the plain twin in the UNet, relative L2 of (eps_u, eps_c)")
     del guidance
     torch.cuda.empty_cache()
-    return {shape: shape_launches[shape_tag(*shape)] for shape in K5_Z123_SHAPES}
+    return {shape: shape_launches[shape_tag(*shape)] for shape in shapes}
 
 
 def assert_same_field(torch, got, want_params, want_alive, label):
@@ -1574,8 +1655,9 @@ def sugar_run(torch, native, label, argv, keys, channels):
 
 def train_sugar(torch, native):
     """SuGaR static, both stages (phase 11).  Returns the sugar stage's
-    launches, K1-K4's inputs at a 512^2 view of its refined field and the
-    path of the refined mesh's OBJ."""
+    launches, K1-K4's inputs at a 512^2 view of its refined field, the path
+    of the refined mesh's OBJ, the sugar stage's checkpoint and its
+    command-line overrides."""
     from threestudio_3dgs_tpu_torch import launch
     from threestudio_3dgs_tpu_torch.models.mesh_extract import save_obj
     from threestudio_3dgs_tpu_torch.models.ply_io import read_ply_table
@@ -1669,7 +1751,182 @@ def train_sugar(torch, native):
         f"{time.perf_counter() - t0:.2f} s")
     del resumed
     torch.cuda.empty_cache()
-    return launches, inp, obj
+    return launches, inp, obj, ckpt_s, common
+
+
+def pred_normal_scene(torch, trainer):
+    """One view of the trained pred_normal field: trained_scene with the
+    field's normal as the 3 extra channels (C = 7)."""
+    scene = trained_scene(torch, trainer)
+    scene["extra"] = trainer.state.gauss.params.normal.detach()
+    return scene
+
+
+def train_pred_normal(torch, native, mv):
+    """PRED_NORMAL_STEPS steps of gaussian_splatting_mvdream.yaml with
+    pred_normal and lambda_pred_normal = 1 (train_lit's checks, K5 at
+    MVDream's f32 shapes): train/loss_pred_normal finite and > 0 each step,
+    the normal field moved, K1/K2 at 7 channels only.  Returns the
+    launches and K1-K4's inputs at one view of the trained field."""
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
+
+    trainer, launches, _ = train_lit(torch, native, "train_mvdream_pred_normal", MVDREAM_CONFIG,
+                                     mv + PRED_NORMAL, K5_MV_SHAPES, steps=PRED_NORMAL_STEPS)
+    by_c = {f"{fn}:{tag}": c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
+            if fn.startswith("blend_")}
+    want = {"blend_forward:C7": launches["blend_forward"],
+            "blend_backward:C7": launches["blend_backward"]}
+    if by_c != want:
+        fail(f"train_mvdream_pred_normal: K1/K2 by channel count {by_c}, want {want}")
+    losses = [row["train/loss_pred_normal"] for row in trainer.metrics_log]
+    if not all(np.isfinite(v) and v > 0 for v in losses):
+        fail(f"train_mvdream_pred_normal: train/loss_pred_normal {losses}")
+    normal = trainer.state.gauss.params.normal
+    init = trainer.system.init_state(trainer.cfg.seed).gauss.params.normal
+    moved = float((normal - init).abs().max())
+    if not moved > 0:
+        fail("train_mvdream_pred_normal: the normal field did not move")
+    log(f"train_mvdream_pred_normal: loss_pred_normal by step "
+        + ", ".join(f"{v:.6g}" for v in losses)
+        + f"; normal moved by up to {moved:.3g} (normal_lr "
+        f"{trainer.system.geometry.lr_tree(0)['normal']:.3g}); K1/K2 by channels {by_c}")
+    inp = view_inputs(pred_normal_scene(torch, trainer), seed=5)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, inp
+
+
+def id_pass_exceptions(torch, verts, faces, cam, got, want):
+    """Pixels whose face ids differ between two id-passes of one view,
+    each classified as a z tie (both hits' depths within 1e-5) or a pixel
+    on a triangle edge (a barycentric of either face within 1e-4 of 0, in
+    float64); fails on any other.  Returns (ties, edge pixels)."""
+    from threestudio_3dgs_tpu_torch.ops.tri_raster import project_vertices
+
+    fa, fb = got.face_id.cpu(), want.face_id.cpu()
+    ys, xs = torch.nonzero(fa != fb, as_tuple=True)
+    if len(ys) == 0:
+        return 0, 0
+    pts, _ = project_vertices(verts.detach().cpu().float(), cam.w2c.cpu(), cam.full_proj.cpu(),
+                              cam.height, cam.width)
+    pts = pts.double()
+    za, zb = got.zbuf.cpu(), want.zbuf.cpu()
+    ties = edges = 0
+    for y, x in zip(ys.tolist(), xs.tolist()):
+        a, b = int(fa[y, x]), int(fb[y, x])
+        if a >= 0 and b >= 0 and abs(float(za[y, x]) - float(zb[y, x])) <= 1e-5:
+            ties += 1
+            continue
+        near = False
+        for f in (a, b):
+            if f < 0:
+                continue
+            v = pts[faces[f].cpu()]
+            p = torch.tensor([x, y], dtype=torch.float64)
+
+            def cross(u, w):
+                return float(u[0] * w[1] - u[1] * w[0])
+
+            e = [cross(v[2] - v[1], p - v[1]), cross(v[0] - v[2], p - v[2]),
+                 cross(v[1] - v[0], p - v[0])]
+            area = sum(e)
+            near |= area != 0 and min(abs(t / area) for t in e) <= 1e-4
+        if not near:
+            fail(f"bake id-pass: pixel ({y}, {x}) has face {a} on the card and {b} on the CPU, "
+                 f"neither a z tie nor on an edge")
+        edges += 1
+    return ties, edges
+
+
+def bake_sugar(torch, native, ckpt, common):
+    """The textured-mesh bake of the refined SuGaR field through
+    ``launch.main --predict --resume`` with the border postprocess and the
+    2^24 pair ceiling, over the data's 120 test views: the OBJ (F faces,
+    3F vt rows), MTL and PNG (tex_size^2) read back; the faces before and
+    after the postprocess, the texture's size and seen share, the id-pass's
+    drop counters, each stage's wall seconds and the peak device memory
+    printed; then one view's id-pass on the card against the same call on
+    the CPU at BAKE_CPU_SIZE^2."""
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.ops.camera import camera_from_c2w
+    from threestudio_3dgs_tpu_torch.ops.tri_raster import rasterize_triangles_camera
+    from threestudio_3dgs_tpu_torch.utils.saving import decode_png
+
+    argv = ["--config", SUGAR_REFINE_CONFIG, "--predict", "--resume", ckpt,
+            "system.postprocess=true", f"exp_root_dir={os.path.join(RUN_DIR, 'sugar_bake')}"]
+    argv += [o for o in common if not o.startswith("data.random_camera.n_test_views")]
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    trainer = launch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = trainer.predict_stats
+    out_dir = os.path.join(trainer.save_dir, "save", f"it{trainer.step}-predict")
+    n_views = len(st["n_dropped_pairs"])
+    faces, tex = st["faces_after"], st["tex_size"]
+    counts = {"v": 0, "vt": 0, "f": 0}
+    with open(os.path.join(out_dir, "textured_mesh.obj")) as f:
+        for line in f:
+            key = line.split(" ", 1)[0]
+            if key in counts:
+                counts[key] += 1
+    with open(os.path.join(out_dir, "textured_mesh.mtl")) as f:
+        mtl = f.read()
+    with open(os.path.join(out_dir, "textured_mesh.png"), "rb") as f:
+        png = decode_png(f.read())
+    n_verts = trainer.state.gauss.params.points.shape[0]
+    if (counts != {"v": n_verts, "vt": 3 * faces, "f": faces} or png.shape != (tex, tex, 3)
+            or "map_Kd textured_mesh.png" not in mtl or n_views != 120
+            or launches["blend_forward"] < n_views or launches["expand_bin"] < n_views):
+        fail(f"bake_sugar: OBJ rows {counts} for {faces} faces and {n_verts} vertices, PNG "
+             f"{png.shape} for tex_size {tex}, {n_views} views, launches {launches}")
+    if not 0 < faces <= st["faces_before"] or not 0 < st["texels_seen"] <= 1:
+        fail(f"bake_sugar: faces {st['faces_before']} -> {faces}, texels seen "
+             f"{st['texels_seen']}")
+    log(f"bake_sugar: --predict of the refined field ({st['faces_before']} faces, "
+        f"{trainer.state.gauss.n_gaussians} Gaussians) with the border postprocess: {faces} "
+        f"faces after it; {n_views} views at {trainer.data.random_camera_cfg.eval_height}^2; "
+        f"texture {tex}x{tex}, {st['texels_seen']:.2%} of the texels seen by a view; id-pass "
+        f"n_dropped_pairs max {max(st['n_dropped_pairs'])} sum {sum(st['n_dropped_pairs'])}, "
+        f"n_dropped_tile max {max(st['n_dropped_tile'])} sum {sum(st['n_dropped_tile'])}; "
+        f"wall s: renders {st['render_s']:.2f}, id-passes {st['id_pass_s']:.2f}, texel init "
+        f"{st['texel_init_s']:.2f}, scatters {st['scatter_s']:.2f}, file writes "
+        f"{st['write_s']:.2f}; {wall:.2f} s in all incl. binding; peak device memory "
+        f"{peak:.2f} GiB; OBJ rows {counts}, PNG {png.shape}; launches {launches}")
+
+    sugar = trainer.state.gauss
+    view = trainer.data.test_views()[0]
+    fovy = float(np.asarray(view["fovy"]).reshape(-1)[0])
+    c2w = np.asarray(view["c2w"][0])
+    max_pairs = max(1 << 18, 1 << int(np.ceil(np.log2(6 * sugar.n_faces))))
+    kw = dict(max_pairs=max_pairs, max_faces_per_tile=1024)
+    cams = {dev: camera_from_c2w(c2w, fovy, fovy, BAKE_CPU_SIZE, BAKE_CPU_SIZE, device=dev)
+            for dev in ("cuda", "cpu")}
+    got = rasterize_triangles_camera(sugar.params.points, sugar.faces, cams["cuda"], **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = rasterize_triangles_camera(sugar.params.points.cpu(), sugar.faces.cpu(), cams["cpu"],
+                                      **kw)
+    cpu_s = time.perf_counter() - t0
+    if (int(got.n_dropped_pairs), int(got.n_dropped_tile)) != \
+            (int(want.n_dropped_pairs), int(want.n_dropped_tile)):
+        fail(f"bake id-pass: drop counters card {int(got.n_dropped_pairs)}, "
+             f"{int(got.n_dropped_tile)} vs CPU {int(want.n_dropped_pairs)}, "
+             f"{int(want.n_dropped_tile)}")
+    ties, edges = id_pass_exceptions(torch, sugar.params.points, sugar.faces, cams["cpu"], got,
+                                     want)
+    hits = int((want.face_id >= 0).sum())
+    same = got.face_id.cpu() == want.face_id
+    bary_err = float((got.bary.cpu() - want.bary)[same].abs().max()) if bool(same.any()) else 0.0
+    log(f"check bake id-pass at {BAKE_CPU_SIZE}^2, card vs CPU ({cpu_s:.1f} s on the CPU): "
+        f"{hits} hit pixels, face ids equal but {ties} z-tie and {edges} edge pixels; "
+        f"barycentrics elsewhere max |diff| {bary_err:.3e}; drops {int(want.n_dropped_pairs)} "
+        f"pairs, {int(want.n_dropped_tile)} tile")
+    del trainer, sugar, got, want
+    torch.cuda.empty_cache()
 
 
 def dynamic_view(torch, trainer, random_view):
@@ -2000,6 +2257,12 @@ def main():
     mv_timing = time_kernels(torch, mv_inp, "mv256")
     del mv_inp
     k5_mv_times = time_flash(torch, K5_MV_SHAPES, torch.float32)
+    # the MVDream YAML with pred_normal: K1/K2 at C = 7 on its trained view
+    pn_launches, pn_inp = train_pred_normal(torch, native, mv)
+    pn_errs = check_kernels(torch, pn_inp, "mv_pn")
+    log("MVDream pred_normal-view timing (256^2, C = 7; these go in the kernels line):")
+    pn_timing = time_kernels(torch, pn_inp, "mv_pn")
+    del pn_inp
 
     trainer, _, _ = train_lit(torch, native, "train_background", BACKGROUND_CONFIG,
                               ["system.guidance_type=fake-sds-guidance"])
@@ -2019,6 +2282,13 @@ def main():
     z123_timing = time_kernels(torch, z123_inp, "z123")
     del z123_inp
     k5_z123_times = time_flash(torch, K5_Z123_SHAPES, torch.bfloat16)
+    # K5 past 64 columns, and the Zero123 guidance at a 512^2 conditioning
+    # image, whose level 1 reaches K5 at d = 80
+    k5_errs.update(check_flash(torch, K5_WIDE_CHECKS, seed=100))
+    z512_k5 = zero123_guidance(torch, native, z123_ckpt, cond_size=512, calls=ZERO123_512_CALLS,
+                               shapes=K5_Z512_SHAPES, label="zero123_guidance_512")
+    k5_z512_times = time_flash(torch, K5_Z512_SHAPES, torch.bfloat16)
+    time_flash(torch, [s for s in K5_WIDE_SHAPES if s not in K5_Z512_SHAPES], torch.bfloat16)
 
     # video-to-4D: K5 at the temporal guidance's CFG batch, the 4D YAMLs
     k5_errs.update(check_flash(torch, K5_GS4D_CHECKS, seed=60))
@@ -2031,12 +2301,14 @@ def main():
     k5_gs4d_times = time_flash(torch, K5_GS4D_SHAPES, torch.bfloat16)
 
     # SuGaR static: the gaussian stage (C = 4), then the sugar stage (C = 7)
-    sugar_launches, sugar_inp, sugar_obj = train_sugar(torch, native)
+    sugar_launches, sugar_inp, sugar_obj, sugar_ckpt, sugar_common = train_sugar(torch, native)
     sugar_errs = check_kernels(torch, sugar_inp, "sugar")
     log("SuGaR reference-view timing (512^2, the refined field, C = 7; these go in the kernels "
         "line):")
     sugar_timing = time_kernels(torch, sugar_inp, "sugar")
     del sugar_inp
+    # --predict: the textured-mesh bake of the refined field
+    bake_sugar(torch, native, sugar_ckpt, sugar_common)
 
     # dynamic SuGaR on the refined mesh: K5 at the temporal guidance's CFG
     # batches, the four YAMLs, K1-K4 at a timed random view and a ref view
@@ -2071,6 +2343,11 @@ def main():
     rows += [(f"flash_attention_forward@{bh}x{n}x{d}", "flash_attention_forward",
               z123_k5[(bh, n, d)], k5_errs[(bh, n, d, "bfloat16")], k5_z123_times[(bh, n, d)])
              for bh, n, d in K5_Z123_SHAPES]
+    rows += [(f"{name}@mvdream_pn", name, pn_launches[name], pn_errs[name], pn_timing[name])
+             for name in raster]
+    rows += [(f"flash_attention_forward@{bh}x{n}x{d}", "flash_attention_forward",
+              z512_k5[(bh, n, d)], k5_errs[(bh, n, d, "bfloat16")], k5_z512_times[(bh, n, d)])
+             for bh, n, d in K5_Z512_SHAPES]
     rows += [(f"{name}@gs4d", name, gs4d_launches[name], gs4d_errs[name], gs4d_timing[name])
              for name in raster]
     rows += [(f"flash_attention_forward@{bh}x{n}x{d}", "flash_attention_forward",

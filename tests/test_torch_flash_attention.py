@@ -10,6 +10,7 @@ chip_smoke.py)."""
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,7 +31,7 @@ def qkv(bh, n, d, seed):
 
 
 @pytest.mark.parametrize("dtype,atol", [("float32", 2e-5), ("bfloat16", 3e-2)])
-@pytest.mark.parametrize("n,d", [(512, 64), (1024, 64)])
+@pytest.mark.parametrize("n,d", [(512, 64), (1024, 64), (1024, 80), (1024, 160)])
 def test_plain_twin_matches_pallas_kernel(n, d, dtype, atol):
     """The JAX tests' tolerances: 2e-5 in f32 (matmul re-association), 3e-2
     in bf16 (inputs, p and the output rounded to bf16)."""
@@ -65,9 +66,24 @@ def test_attention_reference_matches_jax():
     ((8, 256, 20, 64), (8, 256, 20, 64), "cuda", False),   # below MIN_SEQ
     ((8, 1088, 5, 64), (8, 1088, 5, 64), "cuda", False),   # n % 256 != 0
     ((8, 4096, 5, 12), (8, 4096, 5, 12), "cuda", False),   # d % 8 != 0
-], ids=["level0", "level1", "multiview", "cpu", "cross", "short", "untiled", "head_dim"])
-def test_routing_rule(q_shape, k_shape, device, want):
+    ((8, 1024, 8, 80), (8, 1024, 8, 80), "cuda", True),    # Zero123's level 1 at cond 512
+    ((8, 256, 8, 160), (8, 256, 8, 160), "cuda", False),   # its level 2: 256 tokens
+    ((8, 4096, 8, 40), (8, 4096, 8, 40), "cuda", True),    # its level 0 at cond 512
+], ids=["level0", "level1", "multiview", "cpu", "cross", "short", "untiled", "head_dim",
+        "z123_512_level1", "z123_512_level2", "z123_512_level0"])
+def test_routing_rule(q_shape, k_shape, device, want, monkeypatch):
+    """The port's rule, and the JAX package's ``attention`` traced at the
+    same shapes with the TPU as its backend (the card's case) or the CPU:
+    it reaches ``_flash_bhnd`` exactly where the port reaches K5."""
+    import threestudio_3dgs_tpu.ops.flash_attention as jfa
+
     assert fa.kernel_route(q_shape, k_shape, device) is want
+    called = []
+    monkeypatch.setattr(jfa.jax, "default_backend", lambda: "tpu" if device == "cuda" else "cpu")
+    monkeypatch.setattr(jfa, "_flash_bhnd", lambda q, k, v, scale: called.append(1) or q)
+    q, k = (jax.ShapeDtypeStruct(s, jnp.float32) for s in (q_shape, k_shape))
+    jax.eval_shape(lambda q, k, v: jfa.attention(q, k, v, 0.125), q, k, k)
+    assert bool(called) is want
 
 
 LOG2E = math.log2(math.e)
@@ -280,6 +296,42 @@ def test_model_zero_padded_head_dim(kernel, dtype):
         assert max_diff(got, plain) <= k5_tolerance(plain)
 
 
+
+def kernel_tile(kernel, d):
+    """The key tile of K5's kernel at head dim d (csrc/flash_attention.cu
+    bf16_shape / split_shape): bf16 128 keys up to two 64-column boxes, 64
+    past; f32 64 keys in one box, 32 past."""
+    boxes = -(-d // 64)
+    if kernel == "wgmma":
+        return 128 if boxes <= 2 else 64
+    return 64 if boxes == 1 else 32
+
+
+@pytest.mark.parametrize("kernel", list(KERNEL_MODELS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [80, 160])
+def test_model_wide_head_dims(kernel, dtype, d):
+    """Stable Zero123's levels 1-2 at a 512^2 conditioning image, d = 80
+    and 160, as K5 takes them: two or three 64-column boxes, the last
+    zero-filled past d, at the key tile the kernel uses there.  The model
+    leaves the padded columns zero and holds to k5_tolerance against the
+    JAX package's ``_flash_bhnd`` (interpret mode) and the plain twin."""
+    _, exp2, products = KERNEL_MODELS[kernel]
+    tile, scale, width = kernel_tile(kernel, d), d**-0.5, 64 * -(-d // 64)
+    q, k, v = qkv(2, 1024, d, seed=d)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = _flash_bhnd(*(jnp.asarray(a, jdt) for a in (q, k, v)), scale, interpret=True)
+    want = torch.tensor(np.asarray(want.astype(jnp.float32))).to(tdt)
+    padded = online_softmax_model(*(torch.nn.functional.pad(torch.tensor(a).to(tdt), (0, width - d))
+                                    for a in (q, k, v)), scale, tile=tile, exp2=exp2,
+                                  products=products)
+    assert padded.shape == (2, 1024, width) and not bool(padded[..., d:].any())
+    got = padded[..., :d]
+    plain = fa.flash_bhnd_torch(*(torch.tensor(a).to(tdt) for a in (q, k, v)), scale)
+    assert max_diff(got, want) <= k5_tolerance(want)
+    assert max_diff(got, plain) <= k5_tolerance(plain)
+    assert max_diff(plain, want) <= k5_tolerance(want)
+
 @pytest.mark.parametrize("dtype,bh,n,d,scale,want", [
     (torch.bfloat16, 40, 4096, 64, 0.125, "wgmma"),     # level 0 self-attention
     (torch.bfloat16, 80, 1024, 64, 0.125, "wgmma"),     # level 1
@@ -290,7 +342,7 @@ def test_model_zero_padded_head_dim(kernel, dtype):
     (torch.float32, 16, 1024, 64, 0.125, "split_bf16"),  # f32 weights and the checks
     (torch.float32, 16, 1024, 64, -0.125, "split_bf16"),
     (torch.bfloat16, 64, 1024, 40, 40**-0.5, "wgmma"),   # Stable Zero123's level 0
-    (torch.bfloat16, 8, 1024, 80, 80**-0.5, ValueError),  # Zero123's d = 80: above 64
+    (torch.bfloat16, 8, 1024, 80, 80**-0.5, "wgmma"),    # Zero123's level 1 at cond 512
     (torch.float32, 16, 1024, 40, 40**-0.5, "split_bf16"),  # half_precision_weights: false
     (torch.bfloat16, 8, 1024, 8, 8**-0.5, "wgmma"),      # the smallest d
     (torch.float32, 8, 1024, 12, 12**-0.5, ValueError),  # d % 8 != 0
@@ -300,10 +352,17 @@ def test_model_zero_padded_head_dim(kernel, dtype):
     (torch.bfloat16, 16, 1024, 64, -0.125, ValueError),
     (torch.bfloat16, 16, 1024, 64, 0.0, ValueError),
     (torch.float16, 16, 1024, 64, 0.125, ValueError),
+    (torch.bfloat16, 8, 256, 160, 160**-0.5, "wgmma"),   # Zero123's level 2
+    (torch.bfloat16, 8, 1024, 256, 256**-0.5, "wgmma"),  # four 64-column boxes
+    (torch.bfloat16, 8, 1024, 264, 264**-0.5, ValueError),  # past four boxes
+    (torch.float32, 8, 1024, 160, 160**-0.5, "split_bf16"),
+    (torch.float32, 8, 1024, 192, 192**-0.5, "split_bf16"),  # three boxes of planes
+    (torch.float32, 8, 1024, 200, 200**-0.5, ValueError),  # past three
 ], ids=["level0", "level1", "multiview", "ragged", "one_token", "max_bh", "f32",
         "f32_negative_scale", "bf16_d40", "bf16_d80", "f32_d40", "bf16_d8", "f32_d12", "bh_over",
         "f32_max_bh",
-        "f32_bh_over", "bf16_negative_scale", "bf16_zero_scale", "f16"])
+        "f32_bh_over", "bf16_negative_scale", "bf16_zero_scale", "f16", "bf16_d160",
+        "bf16_d256", "bf16_d264", "f32_d160", "f32_d192", "f32_d200"])
 def test_kernel_picked_by_type(dtype, bh, n, d, scale, want):
     """bf16 always goes to the wgmma kernel and f32 to the split-bf16
     kernel; a shape the picked kernel does not take raises (never a bf16

@@ -562,20 +562,56 @@ def test_flash_attention_bh_limit_is_f32_only(cuda):
 
 @torch.no_grad()
 def test_flash_attention_bf16_other_head_dim_raises(cuda):
-    """bf16 with d = 80 (Zero123's level 1, which no shipped config routes
-    to K5): the wrapper raises before any launch, and the C entry point
-    refuses it instead of running another kernel."""
-    q, k, v = (torch.randn((8, 1024, 80), device=cuda, dtype=torch.bfloat16) for _ in range(3))
+    """bf16 with d = 264 (past K5's four 64-column boxes): the wrapper
+    raises before any launch, and the C entry point refuses it instead of
+    running another kernel."""
+    d = 264
+    q, k, v = (torch.randn((8, 1024, d), device=cuda, dtype=torch.bfloat16) for _ in range(3))
     native.reset_launches()
     with pytest.raises(ValueError, match="head dims"):
-        fa.flash_bhnd(q, k, v, 80**-0.5)
+        fa.flash_bhnd(q, k, v, d**-0.5)
     assert native.LAUNCHES["flash_attention_forward"] == 0
     out = torch.full_like(q, 7.0)
     err = native.library("flash_attention").flash_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 8, 1024, 80, 80**-0.5, 1,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 8, 1024, d, d**-0.5, 1,
         native.stream_handle(q.device))
     torch.cuda.synchronize()
     assert err == 1 and bool((out == 7.0).all())  # cudaErrorInvalidValue, nothing written
+
+
+@pytest.mark.parametrize("d", [72, 80, 128, 160, 192, 256])
+@torch.no_grad()
+def test_flash_attention_wide_head_dims(cuda, d):
+    """Head dims above 64 (two to four 64-column boxes, the last zero-filled
+    past d; Stable Zero123's levels 1-2 at d = 80 and 160): bf16 at
+    (64, 1024, d) and a ragged (16, 1000, d), and f32 up to d = 192 at
+    (16, 1024, d), against the plain twin (k5_tolerance), one launch each,
+    counted under its shape; through the C entry point into an output with
+    64 guard elements after it."""
+    lib = native.library("flash_attention")
+    cases = [(64, 1024, torch.bfloat16, 40), (16, 1000, torch.bfloat16, 41)]
+    if d <= fa.MAX_HEAD_DIM[torch.float32]:
+        cases.append((16, 1024, torch.float32, 42))
+    for bh, n, dtype, seed in cases:
+        q, k, v = k5_inputs(bh, n, dtype, seed=seed + d, d=d)
+        scale = d**-0.5
+        native.reset_launches()
+        got = fa.flash_bhnd_cuda(q, k, v, scale)
+        assert native.SHAPE_LAUNCHES[("flash_attention_forward", fa.shape_tag(bh, n, d))] == 1
+        want = fa.flash_bhnd_torch(q, k, v, scale)
+        guarded = torch.full((q.numel() + 64,), 7.0, dtype=dtype, device=cuda)
+        bf16 = dtype == torch.bfloat16
+        scratch = None if bf16 else torch.empty(9 * q.numel(), dtype=torch.bfloat16, device=cuda)
+        err = lib.flash_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), guarded.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), bh, n, d, scale, int(bf16),
+            native.stream_handle(q.device))
+        torch.cuda.synchronize()
+        assert err == 0
+        assert got.shape == (bh, n, d) and bool(torch.isfinite(got).all())
+        assert float((got.float() - want.float()).abs().max()) <= k5_tolerance(want), (bh, n, dtype)
+        assert torch.equal(guarded[: q.numel()].reshape(bh, n, d), got)
+        assert bool((guarded[q.numel():] == 7.0).all())
 
 
 @pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 48, 56, 64])

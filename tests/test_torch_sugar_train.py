@@ -15,6 +15,9 @@ and fed through the system's test-only ``step_draws``.  Losses are held to
 Adam turns rounding into steps of up to its learning rate, ROADMAP
 section 3)."""
 
+import os
+
+import imageio.v2 as imageio
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -41,6 +44,7 @@ from threestudio_3dgs_tpu_torch.systems.base import SystemState
 from threestudio_3dgs_tpu_torch.trainer import Trainer
 from threestudio_3dgs_tpu_torch.utils.ckpt import load_checkpoint
 from threestudio_3dgs_tpu_torch.utils.config import load_config
+from threestudio_3dgs_tpu_torch.utils.saving import decode_png
 
 STEPS = 3
 SIZE = 64
@@ -213,8 +217,12 @@ def test_sugar_stage_resume_and_entry_points(tmp_path):
     """The sugar stage through the launcher on the CPU, bound through
     ``geometry_convert_from`` to an .obj: --train (the test renders and the
     PLY of every bound Gaussian), the checkpoint's SuGaR state read back
-    equal, --resume continuing at its step, and --predict raising for the
-    texture bake that is not ported."""
+    equal, --resume continuing at its step, and --predict (with the border
+    postprocess on) baking the textured mesh: its OBJ and MTL bytes equal
+    to the JAX package's ``predict_textured_mesh`` on the same state, its
+    PNG pixels too (a texel whose JAX value lies within 1e-3 of a step of
+    the 8-bit cast may round either way, as the two packages' renders
+    differ by rounding: such ties are counted, none on these renders)."""
     verts, faces = icosphere(1)
     obj = tmp_path / "mesh.obj"
     with open(obj, "w") as f:
@@ -248,6 +256,53 @@ def test_sugar_stage_resume_and_entry_points(tmp_path):
                           + ["trainer.max_steps=3", f"exp_root_dir={tmp_path / 'b'}"])
     assert resumed.step == 3 and resumed.state.gauss.adam.count == 3
     assert len(resumed.metrics_log) == 1 and np.isfinite(resumed.metrics_log[0]["train/loss_total"])
-    with pytest.raises(NotImplementedError, match="texture_bake"):
-        launch.main(flags + ["--predict", "--resume", ckpt] + over
-                    + [f"exp_root_dir={tmp_path / 'c'}"])
+    predict = ["--predict", "--resume", ckpt, "system.postprocess=true"]
+    baked = launch.main(flags + predict + over + [f"exp_root_dir={tmp_path / 'c'}"])
+    out_dir = f"{baked.save_dir}/save/it2-predict"
+    jt = JaxTrainer(jax_load_config(f"{ROOT}/threestudio_3dgs_tpu/configs/sugar_static_refine.yaml",
+                                    over + JAX_ONLY + ["system.postprocess=true",
+                                                       f"exp_root_dir={tmp_path / 'j'}"]))
+    jax_system_state = jt.system.init_state(jt.cfg.seed)
+    jax_state = jax_system_state.gauss
+    np.testing.assert_array_equal(np.asarray(jax_state.faces), state.gauss.faces.numpy())
+    params = {k: jnp.asarray(v.numpy()) for k, v in state.gauss.params.as_dict().items()}
+    jax_state = jax_state.replace(params=jax_state.params.replace(**params))
+    jax_dir = tmp_path / "j" / "predict"
+    os.makedirs(jax_dir)
+    jt.state = jax_system_state.replace(gauss=jax_state)
+    jt.system.predict_textured_mesh(jt.state, jt.data.test_views(),
+                                    str(jax_dir / "textured_mesh.obj"))
+    for ext in (".obj", ".mtl"):
+        with open(f"{out_dir}/textured_mesh{ext}", "rb") as f, \
+                open(jax_dir / f"textured_mesh{ext}", "rb") as g:
+            assert f.read() == g.read(), ext
+    obj = open(f"{out_dir}/textured_mesh.obj").read()
+    assert obj.count("\nvt ") == 3 * 80 and obj.count("\nf ") == 80
+    with open(f"{out_dir}/textured_mesh.png", "rb") as f:
+        got = decode_png(f.read())
+    want = imageio.imread(jax_dir / "textured_mesh.png")
+    assert got.shape == want.shape and got.shape[0] > 32
+    # the JAX texture before its cast: the 8-bit step a texel lies nearest
+    step = np.clip(jax_texture(jt, jax_state), 0, 1) * 255
+    tie = np.abs(step - np.round(step)) <= 1e-3
+    differ = got != want
+    assert not (differ & ~tie).any()
+    assert differ.sum() == 0, differ.sum()  # the counted ties: none on these renders
+
+
+def jax_texture(jt, jax_state):
+    """The JAX package's baked texture of ``jax_state`` before the 8-bit
+    cast, through its own ``extract_textured_mesh`` with the save stubbed."""
+    from threestudio_3dgs_tpu.models import texture_bake
+
+    got = {}
+    saved = texture_bake.save_textured_obj_uv
+    texture_bake.save_textured_obj_uv = lambda *a: got.setdefault("texture", a[-1])
+    try:
+        texture_bake.extract_textured_mesh(
+            jt.system.geometry, jax_state, lambda vs: jt.system.render_views(
+                jt.state.replace(gauss=jax_state), vs), jt.data.test_views(), "unused.obj",
+            square_size=jt.system.geometry.cfg.square_size_in_texture)
+    finally:
+        texture_bake.save_textured_obj_uv = saved
+    return np.asarray(got["texture"])

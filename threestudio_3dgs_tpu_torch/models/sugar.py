@@ -15,9 +15,10 @@ smoothness losses lives on the host wrapper (``topology`` in numpy, and
 ``topology_t``, its tables moved to the device once at binding).  Adam
 steps every param (no row is dead); the Gaussians are never densified.
 The getters are torch functions of the params, so a render differentiates
-into the mesh vertices.  The texture bake behind ``--predict`` (the JAX package's
-``postprocess_state``, ``compute_density`` and ``save_mesh_obj``) is not
-ported."""
+into the mesh vertices.  Before ``--predict``'s texture bake,
+``postprocess_state`` peels the mesh's low-density border faces
+(``compute_density``: the 16 nearest Gaussians' anisotropic density at the
+removed faces' centres)."""
 
 from __future__ import annotations
 
@@ -308,6 +309,62 @@ class SuGaRModel:
             sh_coeffs=sh_coordinates(p, color_clip),
             normals=gs_normals(p, state.faces, self.n_per_face),
         )
+
+    # -- border-face postprocess before the texture bake ----------------------
+    @torch.no_grad()
+    def compute_density(self, state: SuGaRState, points: torch.Tensor, k: int = 16
+                        ) -> torch.Tensor:
+        """Density at world points: the sum over the k nearest Gaussians of
+        strength * exp(-1/2 d^T Sigma^-1 d), on the Gaussians' device."""
+        from ..ops.knn import knn
+
+        arrays = self.as_gaussian_arrays(state)
+        means = arrays["means3d"]
+        k = min(k, means.shape[0])
+        points = points.to(means.device, torch.float32)
+        # queries in chunks of at most 2^28 distances (1 GiB): a chunk of
+        # the knn's default 4096 rows against the 2.8M Gaussians of a
+        # 470k-face mesh would hold 46 GB
+        _, idx = knn(points, means, k, chunk=max(1, min(4096, (1 << 28) // means.shape[0])))
+        d = points[:, None, :] - means[idx]  # (P, K, 3)
+        rot = quaternion.to_rotation_matrix(arrays["quats"][idx])
+        local = torch.einsum("pkij,pki->pkj", rot, d)  # R^T d
+        inv_var = 1.0 / torch.clamp_min(arrays["scales"][idx] ** 2, 1e-12)
+        q = torch.sum(local * local * inv_var, dim=-1)
+        return torch.sum(arrays["opacities"][idx] * torch.exp(-0.5 * q), dim=-1)
+
+    @torch.no_grad()
+    def postprocess_state(self, state: SuGaRState, density_threshold: float = 0.1,
+                          iterations: int = 5) -> SuGaRState:
+        """Peel ``iterations`` rings of border faces, then re-add the peeled
+        faces whose centre density exceeds the threshold.  The per-face
+        Gaussians' params are subset, the vertices kept, the topology
+        rebuilt and Adam re-initialised (this runs after training)."""
+        faces = state.faces.cpu().numpy()
+        mask = mesh_ops.peel_border_faces(faces, iterations)
+        removed = np.nonzero(~mask)[0]
+        if len(removed):
+            verts = state.params.points
+            centers = verts[state.faces[torch.as_tensor(removed, device=verts.device)]].mean(dim=1)
+            dens = self.compute_density(state, centers)
+            mask[removed] = (dens > density_threshold).cpu().numpy()
+        if mask.all():
+            return state
+        if not mask.any():
+            raise ValueError("postprocess would remove every face")
+        dev = state.faces.device
+        gmask = torch.as_tensor(np.repeat(mask, self.n_per_face), device=dev)
+        p = state.params
+        new_params = SuGaRParams(
+            points=p.points, sh_dc=p.sh_dc[gmask], sh_rest=p.sh_rest[gmask],
+            scales=p.scales[gmask], complex_rot=p.complex_rot[gmask],
+            densities=p.densities[gmask])
+        self.topology = mesh_ops.build_topology(faces[mask], p.points.shape[0])
+        self.topology_t = mesh_ops.MeshTopology(
+            *(torch.as_tensor(a, device=self.device) for a in self.topology))
+        return dataclasses.replace(
+            state, params=new_params, adam=init_adam(new_params.as_dict()),
+            faces=state.faces[torch.as_tensor(mask, device=dev)])
 
     @torch.no_grad()
     def save_ply(self, state: SuGaRState, path: str) -> None:

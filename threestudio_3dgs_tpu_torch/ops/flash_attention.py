@@ -10,8 +10,9 @@ for CUDA tensors; it refuses inputs that require grad on either device.  On
 the card ``k5_kernel`` picks K5's kernel by type alone: bf16 (the UNet's
 type) runs on ``wgmma`` with TMA-fed K/V tiles; f32 splits q, k and v into
 three bf16 planes each and runs both products on ``wgmma`` as six plane
-products.  Both take every head dim d <= 64 with d % 8 == 0 (64 for SD 2.1
-and MVDream, 40 for Stable Zero123's level 0), zero-filled to 64 columns
+products.  Both take every head dim d % 8 == 0 up to ``MAX_HEAD_DIM`` of
+their type (64 for SD 2.1 and MVDream, 40 for Stable Zero123's level 0, 80
+and 160 for its levels 1-2), read in 64-column boxes zero-filled past d
 inside the kernel; a shape that the picked kernel does not take raises.
 
 ``attention`` keeps the JAX package's routing rule, with ``device.type ==
@@ -29,7 +30,9 @@ import torch
 from . import native
 
 BQ = 256  # the TPU kernel's query rows per program; the routing rule keeps it
-MAX_HEAD_DIM = 64  # K5 takes d <= 64, d % 8 == 0 (320/5, 640/10; Zero123's 320/8)
+# the largest head dim each K5 kernel takes (four 64-column boxes in bf16,
+# three in f32), d % 8 == 0
+MAX_HEAD_DIM = {torch.bfloat16: 256, torch.float32: 192}
 MIN_SEQ = 1024
 
 
@@ -68,8 +71,10 @@ def k5_kernel(dtype, bh, n, d, scale) -> str:
         kernel = "split_bf16"
     else:
         raise ValueError(f"K5 takes bf16 or f32 inputs, got {dtype}")
-    if not (0 < d <= MAX_HEAD_DIM and d % 8 == 0):
-        raise ValueError(f"K5 takes head dims d <= {MAX_HEAD_DIM} with d % 8 == 0, got {d}")
+    limit = MAX_HEAD_DIM[dtype]
+    if not (0 < d <= limit and d % 8 == 0):
+        raise ValueError(
+            f"K5 takes {dtype} head dims d <= {limit} with d % 8 == 0, got {d}")
     if kernel == "wgmma" and not scale > 0:
         # the wgmma kernel takes the row max of the unscaled scores
         raise ValueError(f"K5's bf16 kernel takes scale > 0, got {scale}")

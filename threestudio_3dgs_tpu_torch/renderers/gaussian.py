@@ -14,12 +14,15 @@ in one pass (C = 4) and post-processes the view:
     view's ``rays_d``) is composited outside the kernel;
   * ``-normal``: depth -> xyz through the view's ``rays_o``/``rays_d`` ->
     screen-space normals, with the gradient of the normals and the depth
-    stopped where alpha <= 0.99;
+    stopped where alpha <= 0.99; a field with ``pred_normal`` has its
+    per-Gaussian normal blended as three more channels in the same pass
+    (C = 7), returned as ``pred_normal`` (the ``-shading`` variant too);
   * ``-shading``: albedo = image / max(alpha, 1e-4), lit by the material at
     the view's ``light_positions``, composited over the neural background.
 
 Output keys mirror the reference batch renderer: comp_rgb (B, H, W, 3),
-comp_depth, comp_mask (B, H, W, 1), comp_normal, comp_rgb_bg (B, H, W, 3)
+comp_depth, comp_mask (B, H, W, 1), comp_normal, comp_pred_normal,
+comp_rgb_bg (B, H, W, 3)
 where the variant has them, the per-view stacked radii / visibility_filter
 and the per-view pair counts n_pairs / n_dropped.
 
@@ -151,6 +154,9 @@ class GaussianRendererBase:
             confident = alpha > 0.99  # gradients flow only where the render is opaque
             result["normal"] = torch.where(confident, normal_map, normal_map.detach())
             result["depth"] = torch.where(confident[..., 0], depth, depth.detach())
+            if "extra" in out:
+                # the field's predicted normals, blended in the same pass
+                result["pred_normal"] = out["extra"]
 
         if self.with_shading and self.material is not None:
             albedo = torch.clamp(out["image"] / torch.clamp_min(alpha, 1e-4), 0.0, 1.0)
@@ -194,6 +200,8 @@ class GaussianRendererBase:
         colors = override_color
         if colors is None:
             sh_coeffs = gf.get_features(params, color_clip)
+        # pred_normal: the per-Gaussian normal as 3 extra channels (C = 7)
+        extra = params.normal if self.with_normal else None
         out = rasterize(
             params.xyz,
             gf.get_scaling(params, geo.cfg.sphere if geo is not None else False),
@@ -204,6 +212,7 @@ class GaussianRendererBase:
             colors=colors,
             sh_coeffs=sh_coeffs,
             sh_degree=geo.active_sh_degree if geo is not None else 0,
+            extra_features=extra,
             alive=gauss.alive,
             means2d_offset=means2d_offset,
             scaling_modifier=scaling_modifier,
@@ -289,7 +298,7 @@ class GaussianRendererBase:
             "n_pairs": torch.tensor([o["n_pairs"] for o in per_view]),
         }
         for name, out_name in (("depth", "comp_depth"), ("mask", "comp_mask"),
-                               ("normal", "comp_normal"),
+                               ("normal", "comp_normal"), ("pred_normal", "comp_pred_normal"),
                                ("normal_from_dist", "comp_normal_from_dist"),
                                ("comp_rgb_bg", "comp_rgb_bg")):
             if name in per_view[0]:

@@ -26,7 +26,9 @@ SuGaR's free-Gaussian surface regularisers it shares with the 4D system.
 
 Random draws come from the step's generator; the test-only ``step_draws``
 (step -> {"density": ..., "normal": ...}) feeds the JAX package's SuGaR
-samples in.  ``--predict``'s textured-mesh bake is not ported: it raises."""
+samples in.  ``--predict`` bakes the sugar stage's textured mesh
+(``models/texture_bake.py``: an OBJ with a UV atlas, its MTL and PNG),
+after peeling the low-density border faces when ``postprocess`` is set."""
 
 from __future__ import annotations
 
@@ -145,6 +147,10 @@ class GaussianStageRegMixin:
 class SugarStaticConfig(Zero123SystemConfig):
     stage: str = "gaussian"  # "gaussian" | "sugar"
     sugar: dict = dataclasses.field(default_factory=dict)
+    # the border faces' cleanup before the texture bake of --predict
+    postprocess: bool = False
+    postprocess_density_threshold: float = 0.1
+    postprocess_iterations: int = 5
     # the optional 2D-diffusion SDS on the random-camera substep, on the
     # normals every freq.input_normal steps, from freq.milestone_2d_sds
     guidance_2d_type: Optional[str] = None
@@ -304,6 +310,20 @@ class SugarStaticSystem(GaussianStageRegMixin, Zero123System):
             self._refresh_knn(state, step)
         return super().train_step(state, batch, step, generator)
 
-    def predict_textured_mesh(self, state, views, out_path: str):
-        raise NotImplementedError("--predict's textured-mesh bake (models/texture_bake.py, "
-                                  "ops/tri_raster.py) is not ported yet")
+    def predict_textured_mesh(self, state, views, out_path: str, stats=None):
+        """--predict: bake a textured OBJ of the mesh, its border faces of
+        low density peeled first where ``postprocess`` is set.  ``stats``,
+        where given, collects the bake's stage times and counters."""
+        from ..models.texture_bake import extract_textured_mesh
+
+        stats = {} if stats is None else stats
+        stats["faces_before"] = state.gauss.n_faces
+        if self.cfg.postprocess:
+            new_gauss = self.geometry.postprocess_state(
+                state.gauss, density_threshold=self.cfg.postprocess_density_threshold,
+                iterations=self.cfg.postprocess_iterations)
+            state = dataclasses.replace(state, gauss=new_gauss)
+        stats["faces_after"] = state.gauss.n_faces
+        return extract_textured_mesh(
+            self.geometry, state.gauss, lambda vs: self.render_views(state, vs), views, out_path,
+            square_size=self.geometry.cfg.square_size_in_texture, stats=stats)

@@ -15,7 +15,7 @@ Drives the train / validate / test / predict / export lifecycle:
   * validate / test: fixed-circle renders -> PNGs (-> video where imageio
     exists), and the point-cloud PLY after the test renders;
   * export: the exporter's PLY and mesh;
-  * predict: the SuGaR system's textured-mesh bake (not ported: it raises);
+  * predict: the SuGaR system's textured-mesh bake (OBJ + MTL + PNG);
     the other systems have no predict surface and run the test renders.
 """
 
@@ -181,13 +181,26 @@ class Trainer:
         print(f"[trainer] test renders -> {out_dir}; video={video}; ply={ply_path}", flush=True)
 
     def predict(self):
-        """The SuGaR system's textured-mesh bake (not ported: it raises);
-        a system without a predict surface runs the test renders."""
-        if hasattr(self.system, "predict_textured_mesh"):
-            out_path = os.path.join(self.save_dir, "save", "textured_mesh.obj")
-            return self.system.predict_textured_mesh(self.state, self.data.test_views(), out_path)
-        print("[trainer] system has no predict path; running test()", flush=True)
-        return self.test()
+        """--predict: the SuGaR system's textured-mesh bake (OBJ + MTL + PNG
+        under ``save/it<step>-predict/``) over the data's predict views, or
+        its test views where it has none; a system without a predict
+        surface runs the test renders.  The bake's stage times and counters
+        are kept in ``predict_stats``."""
+        if not hasattr(self.system, "predict_textured_mesh"):
+            print("[trainer] system has no predict path; running test()", flush=True)
+            return self.test()
+        views = (self.data.predict_views() if hasattr(self.data, "predict_views")
+                 else self.data.test_views())
+        out_dir = os.path.join(self.save_dir, "save", f"it{self.step}-predict")
+        os.makedirs(out_dir, exist_ok=True)
+        out_path = os.path.join(out_dir, "textured_mesh.obj")
+        self.predict_stats = {}
+        result = self.system.predict_textured_mesh(self.state, views, out_path,
+                                                   stats=self.predict_stats)
+        print(f"[trainer] predict (textured mesh) -> {result}; "
+              + ", ".join(f"{k} {v:.4g}" for k, v in self.predict_stats.items()
+                          if not isinstance(v, list)), flush=True)
+        return result
 
     def export(self):
         exporter = find(self.system.cfg.exporter_type or "gaussian-mesh-exporter")(

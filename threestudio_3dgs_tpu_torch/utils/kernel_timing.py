@@ -18,8 +18,11 @@ gradients K2 makes from it, as a backward sorts them.
 K6 (``expand_slots_cuda``) at the bench scene's depth-ordered pair
 offsets (max_pairs the pair total rounded up to 512), beside
 ``torch.searchsorted``.  Then K5 at the UNet's two bf16 self-attention
-shapes, (40, 4096, 64) and (80, 1024, 64), and at MVDream's two f32 ones,
-(10, 4096, 64) and (20, 1024, 64), beside ``scaled_dot_product_attention``;
+shapes, (40, 4096, 64) and (80, 1024, 64), at MVDream's two f32 ones,
+(10, 4096, 64) and (20, 1024, 64), at Stable Zero123's (64, 1024, 40) and
+(320, 1024, 40) and at its wider head dims, (64, 1024, 80) and
+(64, 1024, 160) (skipped, and said so, for a tree whose K5 refuses them),
+beside ``scaled_dot_product_attention``;
 for f32 also, over 8 seeds of keys in rising norm (the f32 check's
 hardest inputs; the limit is 2e-5), the largest |K5 - plain twin|,
 |K5 - float64| and |plain twin - float64|, with TF32 off.
@@ -227,17 +230,24 @@ def main(argv=None):
     from threestudio_3dgs_tpu_torch.ops import flash_attention as fa
     from threestudio_3dgs_tpu_torch.utils.profiling import k5_inputs
 
-    for bh, n, dtype in ((40, 4096, torch.bfloat16), (80, 1024, torch.bfloat16),
-                         (10, 4096, torch.float32), (20, 1024, torch.float32)):
-        q, k, v = k5_inputs(bh, n, dtype, seed=20)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for bh, n, d, dtype in ((40, 4096, 64, bf16), (80, 1024, 64, bf16), (10, 4096, 64, f32),
+                            (20, 1024, 64, f32), (64, 1024, 40, bf16), (320, 1024, 40, bf16),
+                            (64, 1024, 80, bf16), (64, 1024, 160, bf16)):
+        tag = f"k5_{bh}x{n}x{d}" + ("" if dtype == bf16 else ":f32")
+        try:
+            fa.k5_kernel(dtype, bh, n, d, d**-0.5)
+        except ValueError as e:
+            print(f"{tag}: not taken by this tree's K5 ({e})", flush=True)
+            continue
+        q, k, v = k5_inputs(bh, n, dtype, seed=20, d=d)
         with torch.no_grad():
-            row = time_call(lambda: fa.flash_bhnd_cuda(q, k, v, 0.125), args.iters)
+            row = time_call(lambda: fa.flash_bhnd_cuda(q, k, v, d**-0.5), args.iters)
             row.update(time_call(lambda: F.scaled_dot_product_attention(
-                q[None], k[None], v[None], scale=0.125), args.iters, "library_"))
-            if dtype == torch.float32:
+                q[None], k[None], v[None], scale=d**-0.5), args.iters, "library_"))
+            if dtype == f32:
                 row["rising_errors_by_seed"] = [rising_errors(fa, bh, n, seed) for seed in range(8)]
-        tag = "" if dtype == torch.bfloat16 else ":f32"
-        result["inputs"][f"k5_{bh}x{n}x64{tag}"] = {"flash_attention_forward": row}
+        result["inputs"][tag] = {"flash_attention_forward": row}
         del q, k, v
     print(json.dumps(result), flush=True)
     return result
