@@ -35,9 +35,11 @@ Phases, each of which fails the run with a non-zero exit:
      ``launch.main`` (512^2, batch 4, tile 32, capacity 651,024, 4096
      initial points, fake SDS guidance; the test renders follow) with every
      launch counter zeroed just before and read just after: K1-K4 must
-     have launched and every logged loss must be finite; then hold K1-K4
+     have launched, on the stacked grid once a step after step 0 (the
+     controller shrinks the capacity at step 0, so steps 1-19 take the
+     single pass), and every logged loss must be finite; then hold K1-K4
      again and time them at the trained field's shapes (one view of a
-     training batch);
+     training batch, and the stacked grid of that batch's 4 views);
   6. full run: ``launch.main --train`` on the same YAML and width for 40
      steps with the structural schedule brought forward (validation every
      20 steps; prune and densify every 10 from step 10 with a zero
@@ -51,6 +53,21 @@ Phases, each of which fails the run with a non-zero exit:
      must write an OBJ with faces; prints the wall time, the median step,
      the step times around each structural step and each structural op's
      time on the final field (CUDA events);
+  6b. ``train_batched``: ``gaussian_splatting.yaml`` as written (its
+     ``batched`` and ``adaptive_max_pairs`` on) for 60 steps through
+     ``launch.main`` with fake SDS (512^2, B = 4; 4 test renders after),
+     every counter zeroed just before: fails unless the controller printed
+     one capacity line, 2^21 -> min_pairs (256 Ki) a view at step 0, step 0
+     rendered view by view and steps 1-59 in the single pass (the
+     renderer's path counts; the gate takes 4 x 512^2 at 256 Ki), K1-K4
+     launched on the stacked grid (the ``stacked`` launch tags) once a step
+     after step 0, every loss and parameter finite and no pair dropped;
+     then on the last step's field at the next batch's 4 cameras: K1-K4 on
+     the (64, 16) stacked grid held against their plain twins
+     (``check_kernels``) and timed, and ``rasterize_batched`` held against
+     the per-view ``rasterize`` (forward outputs, radii and visibility
+     equal, gradients to 2e-4 x scale) with both timed fwd+bwd (median of
+     10, CUDA events);
   7. Stable Diffusion guidance: write a seeded random-init checkpoint
      directory with the published stabilityai/stable-diffusion-2-1-base
      UNet, VAE and text encoder architectures (diffusers layout, f32 .bin)
@@ -87,14 +104,17 @@ Phases, each of which fails the run with a non-zero exit:
      fails unless every logged loss is finite, grad_norm > 0, K1-K4
      launched, K5 launched 5 times a step at exactly its shapes ((a): the
      two bf16 ones; (b): (10, 4096, 64) and (20, 1024, 64) in f32; (c):
-     none) and the background MLP moved; then K1-K4 are held and timed at
-     one 256^2 view of the trained MVDream field, and K5 timed in f32 at
-     MVDream's shapes; then ``train_mvdream_pred_normal``: 3 steps of the
+     none), K1-K4 launched on the stacked grid once a step after step 0,
+     and the background MLP moved; then K1-K4 are held and timed at one
+     256^2 view of the trained MVDream field and on the (32, 8) stacked
+     grid of its 4 views, and K5 timed in f32 at MVDream's shapes; then
+     ``train_mvdream_pred_normal``: 3 steps of the
      MVDream YAML with ``system.geometry.pred_normal=true`` and
      ``system.loss.lambda_pred_normal=1`` (train_lit's checks): K1/K2 at 7
      channels only (rgb, depth, the field's normal), train/loss_pred_normal
      finite and > 0 each step, the normal field moved; K1-K4 held and timed
-     at one 256^2 view of that field (C = 7);
+     at one 256^2 view of that field and on the stacked grid of its 4
+     views (C = 7);
   9. image-to-3D: hold K5 at Stable Zero123's head dim, d = 40, against its
      plain version ((64, 1024, 40) bf16 on standard normal and on rising
      keys, a ragged (64, 1000, 40) bf16, (16, 1024, 40) f32 and the same at
@@ -195,9 +215,14 @@ Phases, each of which fails the run with a non-zero exit:
  13. print the per-kernel JSON line (launches from the training runs, K6's
      from its checks, K5 at d = 40 from ``zero123_guidance``,
      ``train_gs4d`` and the dynamic SuGaR runs; times at the main path's
-     shapes, K6's at the bench scene; K1-K4 rows at the trained 512^2 view,
-     at the MVDream view, at the pred_normal MVDream view (C = 7,
-     ``@mvdream_pn``, launches from ``train_mvdream_pred_normal``), at the
+     shapes, K6's at the bench scene; a run's launches on the stacked grid
+     (its ``stacked`` tags) go to its ``_stacked`` row and only its other
+     launches to its single-view row; K1-K4 rows at the trained 512^2 view
+     and on its batch's stacked grid (``@train_stacked``), on the stacked
+     grid of ``train_batched``'s 4 views (``@stacked``), at the MVDream view
+     and its stacked grid (``@mvdream256_stacked``), at the pred_normal
+     MVDream view and its stacked grid (C = 7, ``@mvdream_pn`` and
+     ``@mvdream_pn_stacked``, launches from ``train_mvdream_pred_normal``), at the
      zero123 YAML's 128^2 ref view (launches
      from ``train_zero123``), at the 4D field's 256^2 reference-frame view
      (launches from ``train_gs4d``'s 10 steps), at the SuGaR field's 512^2
@@ -235,6 +260,7 @@ SD_STEPS = 10
 FULL_STEPS = 40
 FULL_MAX_NUM = 10000
 FULL_STRUCTURAL_STEPS = (10, 20, 30)  # densify, densify + opacity reset, cap-prune
+BATCHED_STEPS = 60  # the controller adapts at steps 0 and 50
 CONFIG_DIR = os.path.join(ROOT, "threestudio_3dgs_tpu_torch", "configs")
 SHADING_CONFIG = os.path.join(CONFIG_DIR, "gaussian_splatting_shading.yaml")
 MVDREAM_CONFIG = os.path.join(CONFIG_DIR, "gaussian_splatting_mvdream.yaml")
@@ -440,7 +466,8 @@ def count_evals(torch, inp):
     from threestudio_3dgs_tpu_torch.ops.rasterizer import blend
 
     gx, gy, ts, _ = inp["dims"]
-    px, py = blend._tile_pixel_coords(gx * gy, gx, ts, inp["pair_feats"].device)
+    px, py = blend._tile_pixel_coords(gx * gy, gx, ts, inp["pair_feats"].device,
+                                      inp.get("view_grid_y", 0))
     walk = blend._ChunkWalk(inp["pair_feats"], inp["bins"].tile_ranges, gx * gy, ts * ts)
     evals = torch.zeros((gx * gy, ts * ts), dtype=torch.int64, device=px.device)
     with torch.no_grad():
@@ -486,6 +513,7 @@ def check_kernels(torch, inp, label):
     from threestudio_3dgs_tpu_torch.ops.rasterizer import blend, expand, segsum
 
     gx, gy, ts, c = inp["dims"]
+    vgy = inp.get("view_grid_y", 0)  # views stacked as tile rows: the single pass
     pf, ranges = inp["pair_feats"], inp["bins"].tile_ranges
     errs = {}
     with torch.no_grad():
@@ -498,16 +526,17 @@ def check_kernels(torch, inp, label):
         errs["expand_bin"] = float(err)
 
         # K1: sequential vs chunked transmittance products round apart
-        got = blend.blend_forward_cuda(pf, ranges, gx, gy, ts, c)
-        want = blend.blend_forward_torch(pf, ranges, gx, gy, ts, c)
+        got = blend.blend_forward_cuda(pf, ranges, gx, gy, ts, c, vgy)
+        want = blend.blend_forward_torch(pf, ranges, gx, gy, ts, c, vgy)
         err = float((got - want).abs().max())
         tol = 2e-4 * max(1.0, float(want.abs().max()))
         report(label, "blend_forward", err, tol, "2e-4 x max(1, max|out|)")
         errs["blend_forward"] = err
 
         # K2: per column, relative to the column's largest gradient
-        got = blend.blend_backward_cuda(pf, ranges, inp["out"], inp["g_out"], gx, gy, ts, c)
-        want = blend.blend_backward_torch(pf, ranges, inp["out"], inp["g_out"], gx, gy, ts, c)
+        got = blend.blend_backward_cuda(pf, ranges, inp["out"], inp["g_out"], gx, gy, ts, c, vgy)
+        want = blend.blend_backward_torch(pf, ranges, inp["out"], inp["g_out"], gx, gy, ts, c,
+                                          vgy)
         diff = (got - want).abs().amax(dim=0)
         scale = torch.clamp_min(want.abs().amax(dim=0), 1e-12)
         rel = float((diff / scale).max())
@@ -616,6 +645,7 @@ def time_kernels(torch, inp, label):
         kernel_calls, time_call, wrapper_ms)
 
     gx, gy, ts, c = inp["dims"]
+    vgy = inp.get("view_grid_y", 0)
     pf, ranges = inp["pair_feats"], inp["bins"].tile_ranges
     out, g_out = inp["out"], inp["g_out"]
     vals, offs, counts = inp["seg"]
@@ -660,9 +690,9 @@ def time_kernels(torch, inp, label):
         return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
 
     plain = {
-        "blend_forward": (lambda: blend.blend_forward_torch(pf, ranges, gx, gy, ts, c), 2),
+        "blend_forward": (lambda: blend.blend_forward_torch(pf, ranges, gx, gy, ts, c, vgy), 2),
         "blend_backward": (
-            lambda: blend.blend_backward_torch(pf, ranges, out, g_out, gx, gy, ts, c), 2),
+            lambda: blend.blend_backward_torch(pf, ranges, out, g_out, gx, gy, ts, c, vgy), 2),
         "segsum_monotone": (lambda: segsum.segsum_torch(vals, offs, counts), 5),
         "expand_bin": (lambda: plan.expand(expand.expand_bin_torch), 5),
     }
@@ -742,6 +772,7 @@ def train(torch, native):
     rows = trainer.metrics_log
     if len(rows) != 20:
         fail(f"expected 20 logged steps, got {len(rows)}")
+    single, stacked = split_launches(native, launches, "train", 20)
     for row in rows:
         bad = [k for k, v in row.items() if k.startswith("train/") and not np.isfinite(v)]
         if bad:
@@ -757,8 +788,9 @@ def train(torch, native):
     log(f"train: 20 steps of gaussian_splatting.yaml at {cfg.data['height']}x{cfg.data['width']}, "
         f"batch {cfg.data['batch_size']}, capacity {gauss.capacity}, {gauss.n_alive} alive: "
         f"{wall:.2f} s wall incl. setup; last step loss_total {rows[-1]['train/loss_total']:.6g}, "
-        f"n_pairs_max {rows[-1]['n_pairs_max']:.0f}; launches {launches}")
-    return trainer, launches
+        f"n_pairs_max {rows[-1]['n_pairs_max']:.0f}; launches {single} view by view, "
+        f"{stacked} on the stacked grid")
+    return trainer, single, stacked
 
 
 def trained_scene(torch, trainer):
@@ -886,6 +918,213 @@ def full_run(torch, native):
     torch.cuda.empty_cache()
 
 
+def batched_views(torch, trainer, step):
+    """The field of ``trainer`` and the B cameras of its training batch at
+    ``step``, as the single pass renders them: (scene for view_inputs,
+    cameras)."""
+    from threestudio_3dgs_tpu_torch.models import gaussian_field as gf
+    from threestudio_3dgs_tpu_torch.ops import camera as cam_mod
+    from threestudio_3dgs_tpu_torch.ops.rasterizer.preprocess import sh_colors
+
+    gauss = trainer.state.gauss
+    batch = trainer.data.train_batch(step)
+    cams = [cam_mod.camera_from_c2w(batch["c2w"][i], float(batch["fovy"][i]),
+                                    float(batch["fovy"][i]), int(batch["height"]),
+                                    int(batch["width"]))
+            for i in range(len(batch["c2w"]))]
+    p = gauss.params
+    with torch.no_grad():
+        colors = sh_colors(p.xyz, gf.get_features(p), cams[0].campos, 0)
+        scene = dict(means=p.xyz, scales=gf.get_scaling(p), quats=p.rotation,
+                     opac=gf.get_opacity(p)[:, 0], colors=colors, cam=cams[0],
+                     alive=gauss.alive, tile_size=trainer.system.renderer.cfg.tile_size)
+    return scene, cams
+
+
+def split_launches(native, launches, label, steps):
+    """(single-view launches, stacked-grid launches) of a run of ``steps``
+    steps whose step 0 renders view by view and whose later steps take the
+    single pass (the controller's first adaptation is at step 0): fails
+    unless K1-K4 each launched on the stacked grid once a step after step
+    0.  ``launches`` and the stacked tags are read together, just after
+    the run."""
+    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+
+    stacked = {k: native.SHAPE_LAUNCHES.get((k, "stacked"), 0) for k in RASTER_KERNELS}
+    if any(stacked[k] != steps - 1 for k in RASTER_KERNELS):
+        fail(f"{label}: launches on the stacked grid {stacked}, want {steps - 1} of each")
+    return {k: n - stacked.get(k, 0) for k, n in launches.items()}, stacked
+
+
+def stacked_inputs(torch, trainer, step, seed, extra=None):
+    """K1-K4's inputs on the stacked grid of ``trainer``'s training batch
+    at ``step``, as the single pass makes them (``extra``: the field's
+    extra channels, as in the pred_normal view)."""
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
+
+    scene, cams = batched_views(torch, trainer, step)
+    scene["extra"] = extra
+    return view_inputs(scene, seed=seed, cameras=cams), cams
+
+
+def hold_stacked(torch, inp, cams, label):
+    """K1-K4 on a stacked grid held against their plain twins and timed.
+    Returns (errors, timings)."""
+    errs = check_kernels(torch, inp, label)
+    log(f"{label} timing ({len(cams)} x {cams[0].height}x{cams[0].width} on one grid, "
+        f"view_grid_y {inp['view_grid_y']}; these go in the kernels line):")
+    return errs, time_kernels(torch, inp, label)
+
+
+def batched_vs_loop(torch, trainer, cams):
+    """rasterize_batched against the per-view rasterize on the trained
+    field (its SH, its alive mask, the YAML's tile and the adaptive
+    per-view capacity; the batched pool B times it): forward outputs, radii
+    and visibility equal, gradients of a weighted sum of every output to
+    2e-4 x max(1, max|loop gradient|) per input; fwd+bwd of both paths
+    timed (median of 10, CUDA events)."""
+    from threestudio_3dgs_tpu_torch.models import gaussian_field as gf
+    from threestudio_3dgs_tpu_torch.ops.rasterizer import (
+        RasterizeConfig, rasterize, rasterize_batched)
+
+    gauss, renderer = trainer.state.gauss, trainer.system.renderer
+    p = gauss.params
+    with torch.no_grad():
+        leaves = [p.xyz, gf.get_scaling(p), p.rotation, gf.get_opacity(p)[:, 0],
+                  gf.get_features(p)]
+    b, ts, cap = len(cams), renderer.cfg.tile_size, renderer.pair_capacity
+    bg = torch.tensor([1.0, 1.0, 1.0], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    h, w = cams[0].height, cams[0].width
+    weights = {k: torch.randn((b, h, w) + s, generator=gen, device="cuda")
+               for k, s in (("image", (3,)), ("alpha", ()), ("depth", ()))}
+
+    def step(batched):
+        xs = [t.detach().clone().requires_grad_(True) for t in leaves]
+        kw = dict(sh_coeffs=xs[4], sh_degree=trainer.system.geometry.active_sh_degree,
+                  alive=gauss.alive)
+        if batched:
+            out = rasterize_batched(*xs[:4], cams, bg,
+                                    config=RasterizeConfig(tile_size=ts, max_pairs=b * cap), **kw)
+        else:
+            outs = [rasterize(*xs[:4], cam, bg, config=RasterizeConfig(tile_size=ts,
+                                                                        max_pairs=cap), **kw)
+                    for cam in cams]
+            out = {k: torch.stack([o[k] for o in outs]) for k in
+                   ("image", "alpha", "depth", "radii", "visibility")}
+            out["n_dropped"] = sum(o["n_dropped"] for o in outs)
+        loss = sum((out[k] * wt).sum() for k, wt in weights.items())
+        return out, torch.autograd.grad(loss, xs)
+
+    results = {batched: step(batched) for batched in (True, False)}
+    (out_b, g_b), (out_l, g_l) = results[True], results[False]
+    if out_b["n_dropped"] or out_l["n_dropped"]:
+        fail(f"batched_vs_loop: {out_b['n_dropped']} / {out_l['n_dropped']} pairs dropped")
+    diffs = {k: float((out_b[k].detach().float() - out_l[k].detach().float()).abs().max())
+             for k in ("image", "alpha", "depth", "radii", "visibility")}
+    if any(diffs.values()):
+        fail(f"batched_vs_loop: the single pass's outputs differ from the loop's: {diffs}")
+    names = ("means", "scales", "quats", "opacities", "sh")
+    rel = {n: float((gb - gl).abs().max()) / max(1.0, float(gl.abs().max()))
+           for n, gb, gl in zip(names, g_b, g_l)}
+    if max(rel.values()) > 2e-4:
+        fail(f"batched_vs_loop: gradients past 2e-4 x scale: {rel}")
+    times = {}
+    for batched in (True, False):
+        step(batched)
+        ms = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(batched)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        times["batched" if batched else "loop"] = statistics.median(ms)
+    log(f"batched_vs_loop at {b} x {h}x{w} ({out_b['n_pairs']} pairs, capacity {cap} a view): "
+        f"forward max |diff| {diffs}; gradients max |diff| / max(1, max|loop|) "
+        + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+        + f" (bound 2e-4); fwd+bwd median of 10: single pass {times['batched']:.3f} ms, "
+        f"per-view loop {times['loop']:.3f} ms")
+    return times
+
+
+def train_batched(torch, native):
+    """gaussian_splatting.yaml as written (batched and adaptive_max_pairs
+    on) for BATCHED_STEPS steps through launch.main with fake SDS, every
+    counter zeroed just before: the controller's one capacity line at step
+    0 (2^21 -> min_pairs a view), step 0 on the per-view loop and every
+    later step on the single pass (the renderer's path counts), K1-K4
+    launched on the stacked grid once a step after step 0, every loss and
+    parameter finite, no pair dropped; then, on the last step's field at
+    the next batch's 4 cameras, K1-K4 on the stacked grid held against
+    their plain twins and timed, and the single pass against the per-view
+    loop.  Returns (stacked launches, errors, timings)."""
+    import contextlib
+    import io
+
+    from threestudio_3dgs_tpu_torch import launch
+
+    argv = ["--config", PORT_CONFIG, "--train", f"trainer.max_steps={BATCHED_STEPS}",
+            "trainer.val_check_interval=0", "data.n_test_views=4",
+            "system.guidance_type=fake-sds-guidance",
+            f"exp_root_dir={os.path.join(RUN_DIR, 'batched')}"]
+    native.reset_launches()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        trainer = launch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sys.stdout.write(printed.getvalue())
+    launches, stacked = split_launches(native, dict(native.LAUNCHES), "train_batched",
+                                       BATCHED_STEPS)
+    rows = trainer.metrics_log
+    renderer = trainer.system.renderer
+    paths = dict(renderer.path_counts)  # a new renderer: the run's calls only
+    rcfg = renderer.cfg
+    if len(rows) != BATCHED_STEPS:
+        fail(f"train_batched: expected {BATCHED_STEPS} logged steps, got {len(rows)}")
+    for row in rows:
+        bad = [k for k, v in row.items() if k.startswith("train/") and not np.isfinite(v)]
+        if bad or row["n_dropped_pairs"] != 0:
+            fail(f"train_batched step {row['step']}: non-finite {bad}, "
+                 f"{row['n_dropped_pairs']:.0f} dropped pairs")
+    for k, v in trainer.state.gauss.params.as_dict().items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"train_batched: trained parameter {k} is not finite")
+    lines = [line for line in printed.getvalue().splitlines()
+             if line.startswith("[system] pair capacity")]
+    if not (rcfg.batched and rcfg.adaptive_max_pairs) or len(lines) != 1 or not lines[0].startswith(
+            f"[system] pair capacity {rcfg.max_pairs} -> {rcfg.min_pairs} "):
+        fail(f"train_batched: capacity lines {lines} (batched {rcfg.batched}, adaptive "
+             f"{rcfg.adaptive_max_pairs}); want one, {rcfg.max_pairs} -> {rcfg.min_pairs}")
+    bs = trainer.cfg.data["batch_size"]
+    h, w = trainer.cfg.data["height"], trainer.cfg.data["width"]
+    train_paths = {path: n for (path, training), n in paths.items() if training}
+    if not renderer.use_batched(bs, h, w) or train_paths != {"loop": 1,
+                                                               "batched": BATCHED_STEPS - 1}:
+        fail(f"train_batched: training renders by path {train_paths}; want step 0 on the loop "
+             f"and steps 1-{BATCHED_STEPS - 1} on the single pass")
+    step_ms = [row["step_s"] * 1e3 for row in rows]
+    log(f"train_batched: {BATCHED_STEPS} steps of gaussian_splatting.yaml as written "
+        f"(batched, adaptive_max_pairs) at {h}x{w}, batch {bs}: {wall:.2f} s wall incl. setup "
+        f"and 4 test renders; {lines[0]}; training renders by path {train_paths}; step 0 "
+        f"(per-view loop) {step_ms[0]:.1f} ms, median of steps 2-{BATCHED_STEPS} (single "
+        f"pass) {statistics.median(step_ms[1:]):.1f} ms; n_pairs_max "
+        f"{[int(r['n_pairs_max']) for r in rows[::10]]} (every 10th step); launches "
+        f"{launches} view by view, {stacked} on the stacked grid")
+
+    inp, cams = stacked_inputs(torch, trainer, BATCHED_STEPS, seed=11)
+    errs, timing = hold_stacked(torch, inp, cams, "stacked")
+    del inp
+    batched_vs_loop(torch, trainer, cams)
+    del trainer
+    torch.cuda.empty_cache()
+    return stacked, errs, timing
+
+
 def write_sd_checkpoint(torch):
     """The SD 2.1-base UNet and VAE, and its text encoder with a synthetic
     tokenizer (the byte symbols, the merges learned from a few lines of
@@ -952,8 +1191,10 @@ def train_lit(torch, native, name, config, extra, k5_shapes=(), steps=LIT_STEPS)
     """``steps`` steps of one of the lit YAMLs through launch.main,
     every counter zeroed just before: every logged loss finite, grad_norm
     > 0, K1-K4 launched, K5 launched 5 times a step at each of
-    ``k5_shapes`` and nowhere else, and the background MLP moved.  Returns
-    the trainer, the launches and K5's launches by shape."""
+    ``k5_shapes`` and nowhere else, K1-K4 on the stacked grid once a step
+    after step 0 (``split_launches``), and the background MLP moved.
+    Returns the trainer, the launches view by view and on the stacked grid,
+    and K5's launches by shape."""
     from threestudio_3dgs_tpu_torch import launch
     from threestudio_3dgs_tpu_torch.ops.flash_attention import shape_tag
     from threestudio_3dgs_tpu_torch.systems.base import flatten_extra
@@ -969,6 +1210,7 @@ def train_lit(torch, native, name, config, extra, k5_shapes=(), steps=LIT_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
+    single, stacked = split_launches(native, launches, name, steps)
     shape_launches = {tag: c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
                       if fn == "flash_attention_forward"}
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1003,8 +1245,10 @@ def train_lit(torch, native, name, config, extra, k5_shapes=(), steps=LIT_STEPS)
         f"{min(step_ms):.1f}, max {max(step_ms):.1f}); peak device memory {peak:.2f} GiB; "
         f"last loss_total {rows[-1]['train/loss_total']:.6g}, grad_norm "
         f"{rows[-1]['train/grad_norm']:.6g}; background moved by up to "
-        f"{max(moved.values()):.3g}; launches {launches}, K5 by shape {shape_launches}")
-    return trainer, launches, {shape: shape_launches[shape_tag(*shape)] for shape in k5_shapes}
+        f"{max(moved.values()):.3g}; launches {single} view by view, {stacked} on the stacked "
+        f"grid, K5 by shape {shape_launches}")
+    return (trainer, single, stacked,
+            {shape: shape_launches[shape_tag(*shape)] for shape in k5_shapes})
 
 
 def check_flash(torch, checks=K5_CHECKS, seed=10):
@@ -1639,7 +1883,7 @@ def sugar_run(torch, native, label, argv, keys, channels):
     wall = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
     by_c = {f"{fn}:{tag}": c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
-            if fn.startswith("blend_")}
+            if fn.startswith("blend_") and tag.startswith("C")}
     peak = torch.cuda.max_memory_allocated() / 2**30
     if len(trainer.metrics_log) != SUGAR_STEPS:
         fail(f"{label}: {len(trainer.metrics_log)} logged steps")
@@ -1767,15 +2011,18 @@ def train_pred_normal(torch, native, mv):
     pred_normal and lambda_pred_normal = 1 (train_lit's checks, K5 at
     MVDream's f32 shapes): train/loss_pred_normal finite and > 0 each step,
     the normal field moved, K1/K2 at 7 channels only.  Returns the
-    launches and K1-K4's inputs at one view of the trained field."""
+    launches view by view and on the stacked grid, and K1-K4's inputs at
+    one view of the trained field and on the stacked grid of its batch
+    (with that grid's cameras)."""
     from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
 
-    trainer, launches, _ = train_lit(torch, native, "train_mvdream_pred_normal", MVDREAM_CONFIG,
-                                     mv + PRED_NORMAL, K5_MV_SHAPES, steps=PRED_NORMAL_STEPS)
+    trainer, launches, stacked, _ = train_lit(torch, native, "train_mvdream_pred_normal",
+                                              MVDREAM_CONFIG, mv + PRED_NORMAL, K5_MV_SHAPES,
+                                              steps=PRED_NORMAL_STEPS)
     by_c = {f"{fn}:{tag}": c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
-            if fn.startswith("blend_")}
-    want = {"blend_forward:C7": launches["blend_forward"],
-            "blend_backward:C7": launches["blend_backward"]}
+            if fn.startswith("blend_") and tag.startswith("C")}
+    want = {"blend_forward:C7": launches["blend_forward"] + stacked["blend_forward"],
+            "blend_backward:C7": launches["blend_backward"] + stacked["blend_backward"]}
     if by_c != want:
         fail(f"train_mvdream_pred_normal: K1/K2 by channel count {by_c}, want {want}")
     losses = [row["train/loss_pred_normal"] for row in trainer.metrics_log]
@@ -1791,9 +2038,11 @@ def train_pred_normal(torch, native, mv):
         + f"; normal moved by up to {moved:.3g} (normal_lr "
         f"{trainer.system.geometry.lr_tree(0)['normal']:.3g}); K1/K2 by channels {by_c}")
     inp = view_inputs(pred_normal_scene(torch, trainer), seed=5)
+    stacked_inp = stacked_inputs(torch, trainer, PRED_NORMAL_STEPS, seed=13,
+                                 extra=trainer.state.gauss.params.normal.detach())
     del trainer
     torch.cuda.empty_cache()
-    return launches, inp
+    return launches, stacked, inp, stacked_inp
 
 
 def id_pass_exceptions(torch, verts, faces, cam, got, want):
@@ -1974,7 +2223,7 @@ def dynamic_run(torch, native, label, config, steps, extra, keys):
     wall = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
     by_c = {f"{fn}:{tag}": c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
-            if fn.startswith("blend_")}
+            if fn.startswith("blend_") and tag.startswith("C")}
     k5 = {tag: c for (fn, tag), c in native.SHAPE_LAUNCHES.items()
           if fn == "flash_attention_forward"}
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2207,15 +2456,19 @@ def main():
     del bench
     torch.cuda.empty_cache()
 
-    trainer, train_launches = train(torch, native)
+    trainer, train_launches, train_stacked = train(torch, native)
     train_inp = view_inputs(trained_scene(torch, trainer), seed=3)
+    train_stk_inp, train_cams = stacked_inputs(torch, trainer, 20, seed=14)
     errs["train"] = check_kernels(torch, train_inp, "train")
     log("train-shape timing (the main path's shapes; these go in the kernels line):")
     timing = time_kernels(torch, train_inp, "train")
-    del trainer, train_inp
+    train_stk_errs, train_stk_timing = hold_stacked(torch, train_stk_inp, train_cams,
+                                                    "train_stacked")
+    del trainer, train_inp, train_stk_inp
     torch.cuda.empty_cache()
 
     full_run(torch, native)
+    batched_launches, batched_errs, batched_timing = train_batched(torch, native)
 
     write_sd_checkpoint(torch)
     k5_errs = check_flash(torch)
@@ -2232,7 +2485,7 @@ def main():
     lit = ["system.guidance.pretrained_model_name_or_path=" + SD_DIR,
            "system.prompt_processor.pretrained_model_name_or_path=" + SD_DIR,
            f"system.material.ambient_only_steps={AMBIENT_ONLY_STEPS}"]
-    trainer, _, _ = train_lit(torch, native, "train_shading", SHADING_CONFIG, lit, K5_SHAPES)
+    trainer, _, _, _ = train_lit(torch, native, "train_shading", SHADING_CONFIG, lit, K5_SHAPES)
     prompt_utils = trainer.system.prompt_utils
     if np.array_equal(prompt_utils.text_embedding, text_embedding(prompt_utils.prompt)):
         fail("train_shading: the prompt was not encoded by the CLIP text encoder")
@@ -2245,26 +2498,29 @@ def main():
     # check that it trained has teeth
     mv = ["system.guidance.pretrained_model_name_or_path=" + MV_DIR,
           "system.background.random_aug_prob=0.5"] + lit[1:]
-    trainer, mv_launches, mv_k5 = train_lit(torch, native, "train_mvdream", MVDREAM_CONFIG, mv,
-                                            K5_MV_SHAPES)
+    trainer, mv_launches, mv_stacked, mv_k5 = train_lit(torch, native, "train_mvdream",
+                                                        MVDREAM_CONFIG, mv, K5_MV_SHAPES)
     if trainer.system.guidance.unet is None or trainer.system.guidance.vae_encoder is None:
         fail("train_mvdream: the guidance did not load the MVDream directory")
     mv_inp = view_inputs(trained_scene(torch, trainer), seed=4)
+    mv_stk_inp, mv_cams = stacked_inputs(torch, trainer, LIT_STEPS, seed=15)
     del trainer
     torch.cuda.empty_cache()
     mv_errs = check_kernels(torch, mv_inp, "mv256")
     log("MVDream-view timing (256^2, the trained MVDream field; these go in the kernels line):")
     mv_timing = time_kernels(torch, mv_inp, "mv256")
-    del mv_inp
+    mv_stk_errs, mv_stk_timing = hold_stacked(torch, mv_stk_inp, mv_cams, "mv256_stacked")
+    del mv_inp, mv_stk_inp
     k5_mv_times = time_flash(torch, K5_MV_SHAPES, torch.float32)
     # the MVDream YAML with pred_normal: K1/K2 at C = 7 on its trained view
-    pn_launches, pn_inp = train_pred_normal(torch, native, mv)
+    pn_launches, pn_stacked, pn_inp, (pn_stk_inp, pn_cams) = train_pred_normal(torch, native, mv)
     pn_errs = check_kernels(torch, pn_inp, "mv_pn")
     log("MVDream pred_normal-view timing (256^2, C = 7; these go in the kernels line):")
     pn_timing = time_kernels(torch, pn_inp, "mv_pn")
-    del pn_inp
+    pn_stk_errs, pn_stk_timing = hold_stacked(torch, pn_stk_inp, pn_cams, "mv_pn_stacked")
+    del pn_inp, pn_stk_inp
 
-    trainer, _, _ = train_lit(torch, native, "train_background", BACKGROUND_CONFIG,
+    trainer, _, _, _ = train_lit(torch, native, "train_background", BACKGROUND_CONFIG,
                               ["system.guidance_type=fake-sds-guidance"])
     del trainer
     torch.cuda.empty_cache()
@@ -2330,8 +2586,14 @@ def main():
     raster = [name for name in KERNELS if name not in ("flash_attention_forward", "expand_slots")]
     rows = [(name, name, train_launches[name], max(e[name] for e in errs.values()), timing[name])
             for name in raster]
+    rows += [(f"{name}@train_stacked", name, train_stacked[name], train_stk_errs[name],
+              train_stk_timing[name]) for name in raster]
+    rows += [(f"{name}@stacked", name, batched_launches[name], batched_errs[name],
+              batched_timing[name]) for name in raster]
     rows += [(f"{name}@mvdream256", name, mv_launches[name], mv_errs[name], mv_timing[name])
              for name in raster]
+    rows += [(f"{name}@mvdream256_stacked", name, mv_stacked[name], mv_stk_errs[name],
+              mv_stk_timing[name]) for name in raster]
     rows += [(f"{name}@zero123", name, z123_launches[name], z123_errs[name], z123_timing[name])
              for name in raster]
     rows += [(f"flash_attention_forward@{bh}x{n}x{d}", "flash_attention_forward",
@@ -2345,6 +2607,8 @@ def main():
              for bh, n, d in K5_Z123_SHAPES]
     rows += [(f"{name}@mvdream_pn", name, pn_launches[name], pn_errs[name], pn_timing[name])
              for name in raster]
+    rows += [(f"{name}@mvdream_pn_stacked", name, pn_stacked[name], pn_stk_errs[name],
+              pn_stk_timing[name]) for name in raster]
     rows += [(f"flash_attention_forward@{bh}x{n}x{d}", "flash_attention_forward",
               z512_k5[(bh, n, d)], k5_errs[(bh, n, d, "bfloat16")], k5_z512_times[(bh, n, d)])
              for bh, n, d in K5_Z512_SHAPES]

@@ -46,6 +46,11 @@
 // counter and __threadfence) adds the slices in unit order.  Every sum has
 // a fixed order, so reruns are bitwise identical.
 //
+// Views.  The single-pass batched render stacks B views as tile rows of
+// one (B grid_y, grid_x) grid; with view_grid_y = grid_y > 0 a tile's pixel
+// row is ((tile / grid_x) % view_grid_y) ts + y, view-local like the
+// pairs' means, so each tile blends exactly as in its view's own render.
+//
 // Channels.  C, the blended channels, is a template parameter: C = 4 (rgb
 // + view depth) on the Gaussian renderers, 7 (+ face normals) on SuGaR's,
 // 3 without depth; every C from 3 to 8 is built.
@@ -129,15 +134,19 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* feats, long 
 // The pixel of this thread in unit `sub` of `tile`: warp w covers the
 // 8 x 4 patch at (8 (w % (UNIT / 8)), 4 (w / (UNIT / 8))) of the unit.
 // Returns the pixel's index in the tile and sets its centre coordinates.
+// With view_grid_y > 0 the grid stacks views of view_grid_y tile rows
+// each, and the row is taken in its view (the mod on the integer row, so
+// a pair's arithmetic is that of the single-view render).
 template <int UNIT>
-__device__ __forceinline__ int unit_pixel(int tile, int sub, int grid_x, int ts, float& px,
-                                          float& py) {
+__device__ __forceinline__ int unit_pixel(int tile, int sub, int grid_x, int view_grid_y, int ts,
+                                          float& px, float& py) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int units_x = ts / UNIT;
   const int x = (sub % units_x) * UNIT + (warp % (UNIT / 8)) * 8 + (lane & 7);
   const int y = (sub / units_x) * UNIT + (warp / (UNIT / 8)) * 4 + (lane >> 3);
+  const int row = view_grid_y > 0 ? (tile / grid_x) % view_grid_y : tile / grid_x;
   px = (float)((tile % grid_x) * ts + x);
-  py = (float)((tile / grid_x) * ts + y);
+  py = (float)(row * ts + y);
   return y * ts + x;
 }
 
@@ -224,14 +233,14 @@ template <int kChannels>
 __global__ void __launch_bounds__(kFwdThreads, 12) blend_fwd_kernel(
     const float* __restrict__ feats, const long long* __restrict__ ranges,
     const int* __restrict__ order, float* __restrict__ out, int units_per_tile, int grid_x,
-    int ts) {
+    int view_grid_y, int ts) {
   constexpr int kF = 6 + kChannels;  // floats per pair row
   __shared__ __align__(16) float s_rows[kFwdWarps][kFwdStages][kBatch * kF];
   const int tile = order[blockIdx.x / units_per_tile];
   const int sub = blockIdx.x % units_per_tile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float px, py;
-  const int pix = unit_pixel<kFwdUnit>(tile, sub, grid_x, ts, px, py);
+  const int pix = unit_pixel<kFwdUnit>(tile, sub, grid_x, view_grid_y, ts, px, py);
   const long long start = ranges[tile];
   const long long end = ranges[tile + 1];
 
@@ -328,7 +337,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) blend_bwd_kernel(
     const int* __restrict__ order, const float* __restrict__ out,
     const float* __restrict__ g_out, float* __restrict__ d_feats, float* __restrict__ partial,
     long long* __restrict__ stops, int* __restrict__ arrive, long long n_pairs,
-    int units_per_tile, int grid_x, int ts) {
+    int units_per_tile, int grid_x, int view_grid_y, int ts) {
   constexpr int kF = 6 + kChannels;  // floats per pair row
   constexpr int kGroup = 32 / kF;    // pairs per reduce-scatter: 3 at C <= 4, else 2
   static_assert((kGroup == 2 || kGroup == 3) && kGroup * kF <= 32,
@@ -343,7 +352,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) blend_bwd_kernel(
   if (start >= end) return;  // the whole block: nothing to write
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float px, py;
-  const int pix = unit_pixel<kBwdUnit>(tile, sub, grid_x, ts, px, py);
+  const int pix = unit_pixel<kBwdUnit>(tile, sub, grid_x, view_grid_y, ts, px, py);
   const long long po = ((long long)tile * ts * ts + pix) * (kChannels + 1);
   float g[kChannels + 1];
   float u_tot = 0.0f;
@@ -480,19 +489,20 @@ bool supported(int tile_size, int n_channels) {
 
 template <int kChannels>
 void launch_fwd(const float* feats, const long long* ranges, const int* order, float* out,
-                int blocks, int units, int grid_x, int tile_size, cudaStream_t s) {
+                int blocks, int units, int grid_x, int view_grid_y, int tile_size,
+                cudaStream_t s) {
   blend_fwd_kernel<kChannels><<<blocks, kFwdThreads, 0, s>>>(feats, ranges, order, out, units,
-                                                             grid_x, tile_size);
+                                                             grid_x, view_grid_y, tile_size);
 }
 
 template <int kChannels>
 void launch_bwd(const float* feats, const long long* ranges, const int* order, const float* out,
                 const float* g_out, float* d_feats, float* partial, long long* stops,
                 int* arrive, long long n_pairs, int blocks, int units, int grid_x,
-                int tile_size, cudaStream_t s) {
+                int view_grid_y, int tile_size, cudaStream_t s) {
   blend_bwd_kernel<kChannels><<<blocks, kBwdThreads, 0, s>>>(
       feats, ranges, order, out, g_out, d_feats, partial, stops, arrive, n_pairs, units, grid_x,
-      tile_size);
+      view_grid_y, tile_size);
 }
 
 // Calls LAUNCH<C>(args...) for the runtime channel count C (supported()
@@ -519,29 +529,31 @@ cudaError_t launch_order(const long long* ranges, int num_tiles, int* order, int
 extern "C" {
 
 // feats (P, 6+C) f32; ranges (T+1,) i64; out (T, ts*ts, C+1) f32; order
-// (T,) i32 scratch.
+// (T,) i32 scratch.  view_grid_y: 0 for one view, else the tile rows of
+// each view stacked in the grid (a divisor of num_tiles / grid_x).
 int blend_forward(const void* feats, const void* ranges, void* out, void* order, int num_tiles,
-                  int grid_x, int tile_size, int n_channels, void* stream) {
-  if (!supported(tile_size, n_channels)) return (int)cudaErrorInvalidValue;
+                  int grid_x, int view_grid_y, int tile_size, int n_channels, void* stream) {
+  if (!supported(tile_size, n_channels) || view_grid_y < 0) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch_order((const long long*)ranges, num_tiles, (int*)order, nullptr, s);
   if (err != cudaSuccess) return (int)err;
   const int units = (tile_size / kFwdUnit) * (tile_size / kFwdUnit);
   DISPATCH_CHANNELS(n_channels, launch_fwd, (const float*)feats, (const long long*)ranges,
-                    (const int*)order, (float*)out, num_tiles * units, units, grid_x, tile_size,
-                    s);
+                    (const int*)order, (float*)out, num_tiles * units, units, grid_x, view_grid_y,
+                    tile_size, s);
   return (int)cudaGetLastError();
 }
 
 // d_feats (P, 6+C) f32 must be zero-filled: rows a tile never reached stay
-// 0.  Scratch: order (T,) i32 always; with more than one unit a tile
-// (tile 32): partial (U, P, F) f32, stops (T, U) i64, arrive (T,) i32.
+// 0.  view_grid_y as in blend_forward.  Scratch: order (T,) i32 always;
+// with more than one unit a tile (tile 32): partial (U, P, F) f32, stops
+// (T, U) i64, arrive (T,) i32.
 int blend_backward(const void* feats, const void* ranges, const void* out, const void* g_out,
                    void* d_feats, void* partial, void* stops, void* arrive, void* order,
-                   long long n_pairs, int num_tiles, int grid_x, int tile_size, int n_channels,
-                   void* stream) {
-  if (!supported(tile_size, n_channels)) return (int)cudaErrorInvalidValue;
+                   long long n_pairs, int num_tiles, int grid_x, int view_grid_y, int tile_size,
+                   int n_channels, void* stream) {
+  if (!supported(tile_size, n_channels) || view_grid_y < 0) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const int units = (tile_size / kBwdUnit) * (tile_size / kBwdUnit);
@@ -551,7 +563,7 @@ int blend_backward(const void* feats, const void* ranges, const void* out, const
   DISPATCH_CHANNELS(n_channels, launch_bwd, (const float*)feats, (const long long*)ranges,
                     (const int*)order, (const float*)out, (const float*)g_out, (float*)d_feats,
                     (float*)partial, (long long*)stops, (int*)arrive, n_pairs,
-                    num_tiles * units, units, grid_x, tile_size, s);
+                    num_tiles * units, units, grid_x, view_grid_y, tile_size, s);
   return (int)cudaGetLastError();
 }
 

@@ -10,6 +10,9 @@
 //   * otherwise pair r is tile (y0 + r / w, x0 + r % w) of the rect, and
 //     with culling on it becomes tile `num_tiles` (sorted past every tile
 //     range) when alpha cannot reach 1/255 anywhere inside that tile.
+// With view_grid_y > 0 (the batched render's grid of views stacked as
+// tile rows, the means view-local) that test takes the tile's row in its
+// view, ty % view_grid_y; the tile id stays the stacked one.
 //
 // Design: pair-parallel and load-balanced, the "expand" pattern of CUB
 // and moderngpu.  The grid spans the pairs, never the slot capacity: block
@@ -133,7 +136,7 @@ __global__ void __launch_bounds__(kExpandThreads) expand_kernel(
     const float* __restrict__ cull,    // (N, 6) or null
     int* __restrict__ slot_out, int* __restrict__ gauss_out, int* __restrict__ tile_out,
     long long* __restrict__ key_out, long long n, long long n_pairs, int grid_x,
-    int tile_size, int num_tiles) {
+    int view_grid_y, int tile_size, int num_tiles) {
   __shared__ long long s_bounds[2];
   __shared__ int s_rel[kPairsPerBlock];    // offsets[s0 + j] - p0
   __shared__ int s_gauss[kPairsPerBlock];  // depth_order[s0 + j]
@@ -196,8 +199,9 @@ __global__ void __launch_bounds__(kExpandThreads) expand_kernel(
         const float2 m = __ldg(cf);
         const float2 ab = __ldg(cf + 1);
         const float2 co = __ldg(cf + 2);
-        if (!tile_reachable((float)(tx * tile_size), (float)(ty * tile_size), tsf, m.x, m.y,
-                            ab.x, ab.y, co.x, co.y)) {
+        const int ty_view = view_grid_y > 0 ? ty % view_grid_y : ty;
+        if (!tile_reachable((float)(tx * tile_size), (float)(ty_view * tile_size), tsf, m.x,
+                            m.y, ab.x, ab.y, co.x, co.y)) {
           tile = num_tiles;
         }
       }
@@ -319,18 +323,21 @@ int expand_slots(const void* offsets, void* slot, long long n, long long max_pai
 // exclusive prefix of the full pair counts, so pair p < n_pairs belongs to
 // the last slot whose offset is <= p; rect (N, 4) i32 [x0, y0, w, mask]
 // (16-byte aligned) and cull (N, 6) f32 [mx, my, ca, cb, cc, opa] in
-// ORIGINAL Gaussian order; cull may be null.  Outputs (n_pairs,):
-// slot/gauss/tile i32, key i64.
+// ORIGINAL Gaussian order; cull may be null.  view_grid_y: 0 for one view,
+// else the tile rows of each view stacked in the grid.  Outputs
+// (n_pairs,): slot/gauss/tile i32, key i64.
 int expand_bin(const void* offsets, const void* depth_order, const void* rect,
                const void* cull, void* slot, void* gauss, void* tile, void* key, long long n,
-               long long n_pairs, int grid_x, int tile_size, int num_tiles, void* stream) {
+               long long n_pairs, int grid_x, int view_grid_y, int tile_size, int num_tiles,
+               void* stream) {
   if (n_pairs == 0) return 0;
-  if (n == 0 || ((uintptr_t)rect & 15u) != 0u) return (int)cudaErrorInvalidValue;
+  if (n == 0 || ((uintptr_t)rect & 15u) != 0u || view_grid_y < 0)
+    return (int)cudaErrorInvalidValue;
   const long long blocks = (n_pairs + kPairsPerBlock - 1) / kPairsPerBlock;
   expand_kernel<<<(unsigned)blocks, kExpandThreads, 0, (cudaStream_t)stream>>>(
       (const long long*)offsets, (const long long*)depth_order, (const int4*)rect,
       (const float*)cull, (int*)slot, (int*)gauss, (int*)tile, (long long*)key, n, n_pairs,
-      grid_x, tile_size, num_tiles);
+      grid_x, view_grid_y, tile_size, num_tiles);
   return (int)cudaGetLastError();
 }
 

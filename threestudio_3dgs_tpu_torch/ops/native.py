@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 
@@ -48,10 +48,10 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 SIGNATURES = {
-    "blend_forward": ("blend", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "blend_backward": ("blend", [_P] * 9 + [_LL, _I, _I, _I, _I, _P]),
+    "blend_forward": ("blend", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "blend_backward": ("blend", [_P] * 9 + [_LL, _I, _I, _I, _I, _I, _P]),
     "segsum_monotone": ("segsum", [_P, _P, _P, _P, _LL, _I, _LL, _P]),
-    "expand_bin": ("expand", [_P] * 8 + [_LL, _LL, _I, _I, _I, _P]),
+    "expand_bin": ("expand", [_P] * 8 + [_LL, _LL, _I, _I, _I, _I, _P]),
     "expand_slots": ("expand", [_P, _P, _LL, _LL, _P]),
     "flash_attention_forward": ("flash_attention", [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
 }
@@ -166,16 +166,18 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch(fn: str, *args, shape: str = "") -> None:
+def launch(fn: str, *args, shape: Union[str, Tuple[str, ...]] = "") -> None:
     """Call one C entry point, raise on a CUDA error, count the launch (and,
-    when ``shape`` is given, the launch at that shape)."""
+    when ``shape`` is given, the launch at that shape tag or at each of a
+    tuple of tags)."""
     owner, _ = SIGNATURES[fn]
     err = getattr(library(owner), fn)(*args)
     if err != 0:
         raise KernelError(f"{fn}: CUDA error {err} ({_CUDA_ERRORS.get(err, 'see cuda_runtime_api.h')})")
     LAUNCHES[fn] += 1
-    if shape:
-        SHAPE_LAUNCHES[(fn, shape)] = SHAPE_LAUNCHES.get((fn, shape), 0) + 1
+    for tag in (shape,) if isinstance(shape, str) else shape:
+        if tag:
+            SHAPE_LAUNCHES[(fn, tag)] = SHAPE_LAUNCHES.get((fn, tag), 0) + 1
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

@@ -1,4 +1,4 @@
 """Tile rasterizer: projection, binning, the CUDA kernels and their plain
 torch twins (port of the JAX package's ``ops/rasterizer``)."""
 
-from .api import RasterizeConfig, rasterize  # noqa: F401
+from .api import RasterizeConfig, rasterize, rasterize_batched  # noqa: F401

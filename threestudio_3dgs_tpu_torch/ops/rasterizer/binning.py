@@ -15,6 +15,14 @@ Port of the unpacked path of the JAX package's
   5. one sort of the int64 keys (tile << 32) | depth_rank and the tile
      ranges by ``searchsorted``.
 
+With ``view_grid_y`` > 0 the Gaussians are B views' concatenated, their
+tile rects shifted to the views' rows of one stacked grid and their means
+view-local (``api.rasterize_batched``): the reachability tests take a
+tile's row in its view, ``ty % view_grid_y``; the one global depth sort
+keeps each view's Gaussians in their own order (the sort is stable), so
+every tile gets its pairs in its view's order; and the one capacity drops
+the globally deepest pairs, as the JAX package's does.
+
 The int64 keys remove the 31-bit packed-key limit of the JAX package, and
 the 24/21-bit payload packs and one-hot selects (TPU sort-operand
 workarounds) are not ported.  The sorts are library sorts.
@@ -53,13 +61,14 @@ class PairPlan(NamedTuple):
     grid_x: int
     tile_size: int
     num_tiles: int
+    view_grid_y: int = 0  # tile rows a view, on a grid of stacked views
 
     def expand(self, fn=expand_bin):
         """Run the pair expansion (``expand_bin`` or one of its versions)."""
         return fn(
             self.offsets, self.kept, self.depth_order, self.rect, self.n_pairs,
             self.grid_x, tile_size=self.tile_size, num_tiles=self.num_tiles,
-            cull_fields=self.cull_fields,
+            cull_fields=self.cull_fields, view_grid_y=self.view_grid_y,
         )
 
 
@@ -69,6 +78,7 @@ class Binning(NamedTuple):
     seg_counts: torch.Tensor  # (N,) int64 pairs per Gaussian, original order
     n_pairs: int  # pairs kept (<= max_pairs)
     n_dropped: int  # pairs dropped for capacity
+    view_grid_y: int = 0  # tile rows a view, on a grid of stacked views
 
 
 def plan_pairs(
@@ -78,6 +88,7 @@ def plan_pairs(
     max_pairs: int,
     tile_size: int,
     opacities: torch.Tensor,  # (N,) activated
+    view_grid_y: int = 0,
 ) -> PairPlan:
     """Pairs whose Gaussian cannot reach alpha >= 1/255 inside the tile are
     culled: the blend would zero them anyway (same threshold)."""
@@ -97,6 +108,8 @@ def plan_pairs(
     w_k = torch.clamp_min(rect_w, 1)[:, None]
     tx = tmin[:, 0:1] + jj % w_k
     ty = tmin[:, 1:2] + jj // w_k
+    if view_grid_y:
+        ty = ty % view_grid_y
     reach = tile_reachable(
         (tx * tile_size).float(), (ty * tile_size).float(), float(tile_size),
         means2d[:, 0:1], means2d[:, 1:2],
@@ -129,6 +142,7 @@ def plan_pairs(
         grid_x=grid_x,
         tile_size=tile_size,
         num_tiles=grid_x * grid_y,
+        view_grid_y=view_grid_y,
     )
 
 
@@ -139,8 +153,9 @@ def bin_gaussians(
     max_pairs: int,
     tile_size: int,
     opacities: torch.Tensor,  # (N,) activated
+    view_grid_y: int = 0,
 ) -> Binning:
-    plan = plan_pairs(proj, grid_x, grid_y, max_pairs, tile_size, opacities)
+    plan = plan_pairs(proj, grid_x, grid_y, max_pairs, tile_size, opacities, view_grid_y)
     _, gauss, _, key = plan.expand()
     # stable, so the culled pairs past the last tile keep expand order
     sorted_key, order = torch.sort(key, stable=True)
@@ -154,6 +169,7 @@ def bin_gaussians(
         seg_counts=seg_counts,
         n_pairs=plan.n_pairs,
         n_dropped=plan.n_dropped,
+        view_grid_y=view_grid_y,
     )
 
 
@@ -183,7 +199,8 @@ class PairGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_pairs: torch.Tensor):
-        return segsum_monotone(*segsum_inputs(ctx.binning, d_pairs.contiguous())), None
+        tag = "stacked" if ctx.binning.view_grid_y else ""
+        return segsum_monotone(*segsum_inputs(ctx.binning, d_pairs.contiguous()), tag=tag), None
 
 
 def pair_gather(feats: torch.Tensor, binning: Binning) -> torch.Tensor:

@@ -16,7 +16,14 @@ U_tot - prefix in forward order.  The kernels walk the same pairs one at a
 time (see the source note in ``csrc/blend.cu``).  ``blend_forward`` and
 ``blend_backward`` take the plain twin for CPU tensors and launch the
 kernel for CUDA tensors; each launch is also counted under its channel
-count (``native.SHAPE_LAUNCHES[(fn, "C<n>")]``).
+count (``native.SHAPE_LAUNCHES[(fn, "C<n>")]``) and, on a grid of stacked
+views, under ``(fn, "stacked")``.
+
+``view_grid_y`` (0 = one view): the single-pass batched render stacks B
+views as tile rows of one (B * view_grid_y, grid_x) grid, the pairs'
+means view-local; a tile's pixel row is then taken in its view,
+``(tile // grid_x) % view_grid_y``, so every pair's arithmetic is that of
+the view's own render.
 """
 
 from __future__ import annotations
@@ -37,13 +44,18 @@ FWD_UNIT = 8
 BWD_UNIT = 16
 
 
-def _tile_pixel_coords(num_tiles: int, grid_x: int, tile_size: int, device):
-    """Pixel-centre coordinates (num_tiles, npix) of every tile, x-major."""
+def _tile_pixel_coords(num_tiles: int, grid_x: int, tile_size: int, device,
+                       view_grid_y: int = 0):
+    """Pixel-centre coordinates (num_tiles, npix) of every tile, x-major,
+    view-local when ``view_grid_y`` > 0."""
     npix = tile_size * tile_size
     tile = torch.arange(num_tiles, device=device)
     lane = torch.arange(npix, device=device)
+    row = tile // grid_x
+    if view_grid_y:
+        row = row % view_grid_y
     px = (tile % grid_x)[:, None] * tile_size + lane % tile_size
-    py = (tile // grid_x)[:, None] * tile_size + lane // tile_size
+    py = row[:, None] * tile_size + lane // tile_size
     return px.float(), py.float()
 
 
@@ -107,11 +119,12 @@ def _colors_ext(f, n_channels):
     return torch.cat([f[..., 6 : 6 + n_channels], ones], dim=-1)
 
 
-def blend_forward_torch(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_channels):
+def blend_forward_torch(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_channels,
+                        view_grid_y=0):
     """Plain twin of K1.  Returns (num_tiles, npix, C+1)."""
     num_tiles = grid_x * grid_y
     npix = tile_size * tile_size
-    px, py = _tile_pixel_coords(num_tiles, grid_x, tile_size, pair_feats.device)
+    px, py = _tile_pixel_coords(num_tiles, grid_x, tile_size, pair_feats.device, view_grid_y)
     out = torch.zeros((num_tiles, npix, n_channels + 1), device=pair_feats.device)
     walk = _ChunkWalk(pair_feats, tile_ranges, num_tiles, npix)
     while bool(walk.active.any()):
@@ -124,13 +137,13 @@ def blend_forward_torch(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_ch
 
 
 def blend_backward_torch(
-    pair_feats, tile_ranges, out, g_out, grid_x, grid_y, tile_size, n_channels
+    pair_feats, tile_ranges, out, g_out, grid_x, grid_y, tile_size, n_channels, view_grid_y=0
 ):
     """Plain twin of K2.  Returns d pair_feats (P, 6+C)."""
     num_tiles = grid_x * grid_y
     npix = tile_size * tile_size
     device = pair_feats.device
-    px, py = _tile_pixel_coords(num_tiles, grid_x, tile_size, device)
+    px, py = _tile_pixel_coords(num_tiles, grid_x, tile_size, device, view_grid_y)
     walk = _ChunkWalk(pair_feats, tile_ranges, num_tiles, npix)
     grads = torch.zeros((walk.p_total + CHUNK, walk.f_dim), device=device)
     u_tot = torch.sum(g_out * out, dim=-1)  # (T, npix)
@@ -172,6 +185,11 @@ def blend_backward_torch(
     return grads[: walk.p_total]
 
 
+def _check_view_grid_y(grid_y, view_grid_y):
+    if view_grid_y < 0 or (view_grid_y and grid_y % view_grid_y):
+        raise ValueError(f"view_grid_y {view_grid_y} must be 0 or divide grid_y {grid_y}")
+
+
 def _check_blend_args(pair_feats, tile_ranges, num_tiles, tile_size, n_channels):
     if n_channels not in KERNEL_CHANNELS:
         raise ValueError(f"blend kernels take 3 to 8 channels, got {n_channels}")
@@ -204,11 +222,17 @@ def backward_scratch(num_tiles: int, n_pairs: int, tile_size: int, n_feats: int,
     )
 
 
-def blend_forward_cuda(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_channels):
+def _shape_tags(n_channels, view_grid_y):
+    return (f"C{n_channels}",) + (("stacked",) if view_grid_y else ())
+
+
+def blend_forward_cuda(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_channels,
+                       view_grid_y=0):
     """K1 on the card: FWD_UNIT x FWD_UNIT-pixel units, heaviest tile
     first, one thread per pixel."""
     num_tiles = grid_x * grid_y
     _check_blend_args(pair_feats, tile_ranges, num_tiles, tile_size, n_channels)
+    _check_view_grid_y(grid_y, view_grid_y)
     device = pair_feats.device
     out = torch.empty(
         (num_tiles, tile_size * tile_size, n_channels + 1), dtype=torch.float32, device=device
@@ -216,20 +240,21 @@ def blend_forward_cuda(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_cha
     order = torch.empty(num_tiles, dtype=torch.int32, device=device)
     native.launch(
         "blend_forward", pair_feats.data_ptr(), tile_ranges.data_ptr(), out.data_ptr(),
-        order.data_ptr(), num_tiles, grid_x, tile_size, n_channels, native.stream_handle(device),
-        shape=f"C{n_channels}",
+        order.data_ptr(), num_tiles, grid_x, view_grid_y, tile_size, n_channels,
+        native.stream_handle(device), shape=_shape_tags(n_channels, view_grid_y),
     )
     return out
 
 
 def blend_backward_cuda(
-    pair_feats, tile_ranges, out, g_out, grid_x, grid_y, tile_size, n_channels
+    pair_feats, tile_ranges, out, g_out, grid_x, grid_y, tile_size, n_channels, view_grid_y=0
 ):
     """K2 on the card: replays the forward walk per pixel and writes each
     pair's gradient row once (rows no pixel reached stay zero); a tile's
     units are summed in unit order through the scratch."""
     num_tiles = grid_x * grid_y
     _check_blend_args(pair_feats, tile_ranges, num_tiles, tile_size, n_channels)
+    _check_view_grid_y(grid_y, view_grid_y)
     native.check_cuda_tensor(out, "out", torch.float32, 3)
     native.check_cuda_tensor(g_out, "g_out", torch.float32, 3)
     shape = (num_tiles, tile_size * tile_size, n_channels + 1)
@@ -243,32 +268,28 @@ def blend_backward_cuda(
         "blend_backward", pair_feats.data_ptr(), tile_ranges.data_ptr(), out.data_ptr(),
         g_out.data_ptr(), d_feats.data_ptr(),
         *(scratch[k].data_ptr() for k in ("partial", "stops", "arrive", "order")),
-        n_pairs, num_tiles, grid_x, tile_size, n_channels, native.stream_handle(device),
-        shape=f"C{n_channels}",
+        n_pairs, num_tiles, grid_x, view_grid_y, tile_size, n_channels,
+        native.stream_handle(device), shape=_shape_tags(n_channels, view_grid_y),
     )
     return d_feats
 
 
-def blend_forward(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_channels):
-    if pair_feats.device.type == "cpu":
-        return blend_forward_torch(
-            pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_channels
-        )
-    return blend_forward_cuda(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_channels)
+def blend_forward(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_channels,
+                  view_grid_y=0):
+    fn = blend_forward_torch if pair_feats.device.type == "cpu" else blend_forward_cuda
+    return fn(pair_feats, tile_ranges, grid_x, grid_y, tile_size, n_channels, view_grid_y)
 
 
-def blend_backward(pair_feats, tile_ranges, out, g_out, grid_x, grid_y, tile_size, n_channels):
-    if pair_feats.device.type == "cpu":
-        return blend_backward_torch(
-            pair_feats, tile_ranges, out, g_out, grid_x, grid_y, tile_size, n_channels
-        )
-    return blend_backward_cuda(
-        pair_feats, tile_ranges, out, g_out, grid_x, grid_y, tile_size, n_channels
-    )
+def blend_backward(pair_feats, tile_ranges, out, g_out, grid_x, grid_y, tile_size, n_channels,
+                   view_grid_y=0):
+    fn = blend_backward_torch if pair_feats.device.type == "cpu" else blend_backward_cuda
+    return fn(pair_feats, tile_ranges, out, g_out, grid_x, grid_y, tile_size, n_channels,
+              view_grid_y)
 
 
 def tiles_to_image(tiled, grid_x: int, grid_y: int, tile_size: int, height: int, width: int):
-    """(T, npix, C) -> (H, W, C), cropping tile padding."""
+    """(T, npix, C) -> (H, W, C), cropping tile padding.  A grid of B
+    stacked views gives the tall (B * view_h, W, C) image."""
     c = tiled.shape[2]
     img = tiled.reshape(grid_y, grid_x, tile_size, tile_size, c)
     img = img.permute(0, 2, 1, 3, 4).reshape(grid_y * tile_size, grid_x * tile_size, c)

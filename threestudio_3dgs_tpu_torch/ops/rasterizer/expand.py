@@ -17,8 +17,12 @@ and the int64 tile-sort key ``(tile << 32) | slot``:
 
 The rect and mask fields are one (N, 4) int32 row per Gaussian
 (``pack_rect``: x0, y0, w, mask), the cull fields (N, 6) f32, both indexed
-by ORIGINAL Gaussian id.  ``expand_bin`` takes the plain twin for CPU
-tensors and launches the kernel for CUDA tensors.  K6 (``expand_slots``,
+by ORIGINAL Gaussian id.  With ``view_grid_y`` > 0 (the batched render's
+grid of views stacked as tile rows, the means view-local) the cull tests
+the tile at its row in its view, ``ty % view_grid_y``.  ``expand_bin``
+takes the plain twin for CPU tensors and launches the kernel for CUDA
+tensors (a launch on stacked views is also counted under
+``native.SHAPE_LAUNCHES[("expand_bin", "stacked")]``).  K6 (``expand_slots``,
 port of ``expand_slots_pallas``) is the slot column alone, from int32
 offsets; it routes the same way.
 """
@@ -77,6 +81,7 @@ def pack_rect(x0, y0, rect_w, mask) -> torch.Tensor:
 def expand_bin_torch(
     offsets, counts, depth_order, rect, n_pairs: int, grid_x: int,
     tile_size: int = 0, num_tiles: int = 0, cull_fields: Optional[torch.Tensor] = None,
+    view_grid_y: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of K4 (the repeat_interleave form).  Returns
     (slot, gauss, tile) int32 and key int64, each (n_pairs,)."""
@@ -93,8 +98,9 @@ def expand_bin_torch(
     tile = ty * grid_x + tx
     if cull_fields is not None:
         cf = cull_fields[g]
+        ty_view = ty % view_grid_y if view_grid_y else ty
         keep = tile_reachable(
-            (tx * tile_size).float(), (ty * tile_size).float(), float(tile_size),
+            (tx * tile_size).float(), (ty_view * tile_size).float(), float(tile_size),
             cf[:, 0], cf[:, 1], cf[:, 2], cf[:, 3], cf[:, 4], cf[:, 5],
         )
         tile = torch.where(keep, tile, torch.full_like(tile, num_tiles))
@@ -109,12 +115,15 @@ def expand_bin_torch(
 def expand_bin_cuda(
     offsets, counts, depth_order, rect, n_pairs: int, grid_x: int,
     tile_size: int = 0, num_tiles: int = 0, cull_fields: Optional[torch.Tensor] = None,
+    view_grid_y: int = 0,
 ):
     """K4 on the card: the grid spans the pairs, each block searching the
     offsets for its slots.  It reads no counts: under ``expand_bin``'s
     contract pair p < n_pairs belongs to the last slot whose offset is
     <= p, which ``counts`` (checked here) only restates."""
     n = counts.shape[0]
+    if view_grid_y < 0:
+        raise ValueError(f"view_grid_y must be >= 0, got {view_grid_y}")
     for t, name in ((offsets, "offsets"), (counts, "counts"), (depth_order, "depth_order")):
         native.check_cuda_tensor(t, name, torch.int64, 1)
         if t.shape[0] != n:
@@ -135,7 +144,8 @@ def expand_bin_cuda(
         "expand_bin", offsets.data_ptr(), depth_order.data_ptr(), rect.data_ptr(),
         None if cull_fields is None else cull_fields.data_ptr(),
         slot.data_ptr(), gauss.data_ptr(), tile.data_ptr(), key.data_ptr(),
-        n, n_pairs, grid_x, tile_size, num_tiles, native.stream_handle(device),
+        n, n_pairs, grid_x, view_grid_y, tile_size, num_tiles, native.stream_handle(device),
+        shape="stacked" if view_grid_y else "",
     )
     return slot, gauss, tile, key
 
@@ -143,6 +153,7 @@ def expand_bin_cuda(
 def expand_bin(
     offsets, counts, depth_order, rect, n_pairs: int, grid_x: int,
     tile_size: int = 0, num_tiles: int = 0, cull_fields: Optional[torch.Tensor] = None,
+    view_grid_y: int = 0,
 ):
     """``offsets`` is the exclusive prefix of the full pair counts and
     ``counts`` those counts clipped so that the pairs fill exactly
@@ -151,6 +162,7 @@ def expand_bin(
     return fn(
         offsets, counts, depth_order, rect, n_pairs, grid_x,
         tile_size=tile_size, num_tiles=num_tiles, cull_fields=cull_fields,
+        view_grid_y=view_grid_y,
     )
 
 

@@ -5,7 +5,9 @@ Port of the JAX package's ``ops/rasterizer/segsum_pallas.py``
 per-Gaussian sum of gradient rows that arrive sorted by Gaussian id, each
 Gaussian owning the contiguous rows [offsets[i], offsets[i] + counts[i]).
 ``segsum_monotone`` takes the plain twin for CPU tensors and launches the
-kernel for CUDA tensors.
+kernel for CUDA tensors (counted under ``native.SHAPE_LAUNCHES[(fn, tag)]``
+where the caller gives a tag: "stacked" for the batched render's B * N
+segments).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ def segsum_torch(vals: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor
     return out.index_add_(0, seg, rows)
 
 
-def segsum_cuda(vals: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor):
+def segsum_cuda(vals: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor, tag: str = ""):
     """K3 on the card: a block per run of consecutive segments streams their
     rows through shared memory; one thread per (segment, column) sums them
     in row order, no atomics."""
@@ -43,14 +45,15 @@ def segsum_cuda(vals: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor)
     out = torch.empty((n, f), dtype=torch.float32, device=vals.device)
     native.launch(
         "segsum_monotone", vals.data_ptr(), offsets.data_ptr(), counts.data_ptr(),
-        out.data_ptr(), n, f, vals.shape[0], native.stream_handle(vals.device),
+        out.data_ptr(), n, f, vals.shape[0], native.stream_handle(vals.device), shape=tag,
     )
     return out
 
 
-def segsum_monotone(vals: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor):
+def segsum_monotone(vals: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor,
+                    tag: str = ""):
     """(P, F) rows sorted by segment -> (N, F) per-segment sums.  Segments
     must be contiguous and in order: offsets[i+1] = offsets[i] + counts[i]."""
     if vals.device.type == "cpu":
         return segsum_torch(vals, offsets, counts)
-    return segsum_cuda(vals, offsets, counts)
+    return segsum_cuda(vals, offsets, counts, tag)

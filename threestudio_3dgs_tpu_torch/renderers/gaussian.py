@@ -3,10 +3,15 @@
 ``diff-gaussian-rasterizer`` and its ``-advanced``, ``-background``,
 ``-normal`` and ``-shading`` variants).
 
-The batch is rendered one view at a time, as the JAX package does at the
-training shape (its single-pass batched render is not ported; the
-``batched`` keys are read and ignored).  Every variant blends rgb and depth
-in one pass (C = 4) and post-processes the view:
+The batch is rendered view by view, or in one pass of the rasterizer
+(``rasterize_batched``: the views stacked as tile rows of one grid, one
+pair capacity of B x the per-view capacity shared by all) where the JAX
+package's gate takes that path: ``batched`` on, B > 1, a per-view
+capacity of at most ``batched_max_pairs`` and a pair pool the JAX
+package's packed sort key can hold (``_batched_key_fits``).  The per-view
+capacity is ``max_pairs``, or the system's adaptive capacity
+(``max_pairs_override``, systems/base.py) when it sets one.  Every variant
+blends rgb and depth in one pass (C = 4) and post-processes each view:
 
   * ``-advanced``: depth and alpha mask;
   * ``-background``: the kernel background is zero and the neural
@@ -24,12 +29,14 @@ Output keys mirror the reference batch renderer: comp_rgb (B, H, W, 3),
 comp_depth, comp_mask (B, H, W, 1), comp_normal, comp_pred_normal,
 comp_rgb_bg (B, H, W, 3)
 where the variant has them, the per-view stacked radii / visibility_filter
-and the per-view pair counts n_pairs / n_dropped.
+and the per-view pair counts n_pairs / n_dropped (on the single pass each
+view's share of the totals, rounded up, as the JAX package reports them).
 
 Draws (the kernel background's inversion, the neural background's
 augmentation, the material's) come from the step's generator, view by view
-in that order; the test-only ``draws`` keyword (one dict per view) feeds
-them in instead.
+in that order on either path; the test-only ``draws`` keyword (one dict per
+view) feeds them in instead.  A renderer's ``path_counts`` counts the path
+each of its ``batch_forward`` calls took.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import torch
 from ..models import gaussian_field as gf
 from ..ops import camera as cam_ops
 from ..ops.image import depth_to_normal, normalize_vec
-from ..ops.rasterizer import RasterizeConfig, rasterize
+from ..ops.rasterizer import RasterizeConfig, rasterize, rasterize_batched
 from ..utils.config import parse_structured
 from ..utils.draws import uniforms
 from ..utils.registry import register
@@ -54,12 +61,14 @@ class RendererConfig:
     back_ground_color: Tuple[float, float, float] = (1, 1, 1)
     tile_size: int = 32
     max_pairs: int = 2**21  # ceiling; pair buffers are sized per frame below it
-    # read and ignored: per-frame sizing of the pair buffers makes the JAX
-    # package's bucketed capacity controller moot
+    # bucketed pair capacity between min_pairs and max_pairs, set by the
+    # system's controller (systems/base.py) where its train step runs it
     adaptive_max_pairs: bool = False
     min_pairs: int = 256 * 1024
-    # read and ignored: the single-pass batched render is not ported yet
+    # the camera batch in one pass of the rasterizer where the gate in
+    # batch_forward allows it, else the per-view loop
     batched: bool = True
+    # the largest per-view capacity the single pass takes
     batched_max_pairs: int = 256 * 1024
 
 
@@ -78,6 +87,8 @@ class GaussianRendererBase:
     """Shared machinery.  Subclasses set class flags for channels."""
 
     Config = RendererConfig
+    # the system's adaptive per-view capacity, when it sets one
+    max_pairs_override: Optional[int] = None
     with_depth = False
     with_mask = False
     with_normal = False
@@ -95,6 +106,32 @@ class GaussianRendererBase:
         self.geometry = geometry
         self.material = material
         self.background = background
+        # (path, training) -> batch_forward calls that took it; path
+        # "batched" or "loop"
+        self.path_counts: Dict[Tuple[str, bool], int] = {}
+
+    @property
+    def pair_capacity(self) -> int:
+        """The per-view pair capacity: the system's override, else max_pairs."""
+        return self.max_pairs_override or self.cfg.max_pairs
+
+    def _batched_key_fits(self, bs: int, per_view_cap: int, height: int, width: int) -> bool:
+        """The JAX package's test that its packed int32 tile-sort key
+        (tile << pair_bits | pair) holds the single pass's bs * cap pair
+        pool over bs * grid tiles: pair_bits + tile_bits <= 31.  The port's
+        int64 keys hold any pool, but the test decides which path runs, so
+        which capacity drops pairs and what n_pairs reports: the port
+        follows the JAX package's rule as written."""
+        ts = self.cfg.tile_size
+        num_tiles = bs * ((width + ts - 1) // ts) * ((height + ts - 1) // ts)
+        pair_bits = max(int(bs * per_view_cap - 1).bit_length(), 1)
+        return pair_bits + int(num_tiles).bit_length() <= 31
+
+    def use_batched(self, bs: int, height: int, width: int) -> bool:
+        """The JAX package's gate of the single-pass batched render."""
+        cap = self.pair_capacity
+        return (self.cfg.batched and bs > 1 and cap <= self.cfg.batched_max_pairs
+                and self._batched_key_fits(bs, cap, height, width))
 
     def _kernel_bg(self, generator: Optional[torch.Generator], training: bool, device,
                    draws: Optional[Dict[str, Any]] = None):
@@ -216,7 +253,7 @@ class GaussianRendererBase:
             alive=gauss.alive,
             means2d_offset=means2d_offset,
             scaling_modifier=scaling_modifier,
-            config=RasterizeConfig(tile_size=cfg.tile_size, max_pairs=cfg.max_pairs),
+            config=RasterizeConfig(tile_size=cfg.tile_size, max_pairs=self.pair_capacity),
         )
         return self._post_view(
             out, bg_params=bg_params, rays_o=rays_o, rays_d=rays_d,
@@ -249,39 +286,114 @@ class GaussianRendererBase:
         bs = c2w.shape[0]
         height, width = int(batch["height"]), int(batch["width"])
         device = self.state_device(gauss)
-        per_view = []
+        cameras, times, views = [], [], []
         for i in range(bs):
+            fovy = float(batch["fovy"][i])
+            cameras.append(cam_ops.camera_from_c2w(
+                c2w[i], fovy, fovy, height, width, znear=0.1, zfar=100.0, device=device
+            ))  # fovx = fovy, as the reference batch renderer passes
+            times.append(dict(
+                timestamp=batch["timestamp"][i] if "timestamp" in batch else None,
+                frame_idx=batch["frame_indices"][i] if "frame_indices" in batch else None,
+            ))
+            views.append(dict(
+                bg_params=bg_params,
+                rays_o=_view_tensor(batch, "rays_o", i, device),
+                rays_d=_view_tensor(batch, "rays_d", i, device),
+                light_positions=_view_tensor(batch, "light_positions", i, device),
+                generator=generator,
+                ambient_only=ambient_only,
+                training=training,
+                ambient_ratio=ambient_ratio,
+                shading=shading,
+                draws=None if draws is None else draws[i],
+            ))
+        path = "batched" if self.use_batched(bs, height, width) else "loop"
+        self.path_counts[(path, training)] = self.path_counts.get((path, training), 0) + 1
+        if path == "batched":
+            attrs = self._batched_attrs(gauss, times, color_clip, override_color,
+                                        deformation_params, knots)
+            return self._batch_forward_batched(cameras, views, attrs, means2d_offset)
+        per_view = []
+        for i, camera in enumerate(cameras):
             temporal = {}
             if self.temporal:
-                temporal = dict(
-                    timestamp=batch["timestamp"][i] if "timestamp" in batch else None,
-                    frame_idx=batch["frame_indices"][i] if "frame_indices" in batch else None,
-                    deformation_params=deformation_params, knots=knots,
-                )
-            fovy = float(batch["fovy"][i])
-            camera = cam_ops.camera_from_c2w(
-                c2w[i], fovy, fovy, height, width, znear=0.1, zfar=100.0, device=device
-            )  # fovx = fovy, as the reference batch renderer passes
+                temporal = dict(times[i], deformation_params=deformation_params, knots=knots)
             per_view.append(
                 self.render_one(
                     gauss,
                     camera,
-                    bg_params=bg_params,
-                    rays_o=_view_tensor(batch, "rays_o", i, device),
-                    rays_d=_view_tensor(batch, "rays_d", i, device),
-                    light_positions=_view_tensor(batch, "light_positions", i, device),
-                    generator=generator,
-                    ambient_only=ambient_only,
-                    training=training,
                     color_clip=color_clip,
                     means2d_offset=None if means2d_offset is None else means2d_offset[i],
                     override_color=override_color,
-                    ambient_ratio=ambient_ratio,
-                    shading=shading,
-                    draws=None if draws is None else draws[i],
+                    **views[i],
                     **temporal,
                 )
             )
+        return self._stack_views(per_view)
+
+    def _batched_attrs(self, gauss, times, color_clip, override_color, deformation_params,
+                       knots) -> Dict[str, Any]:
+        """``rasterize_batched``'s scene arguments: the static field's, as
+        ``render_one`` passes them.  Renderers with per-view attributes
+        (the timed fields) override it; ``times`` holds each view's
+        timestamp and frame index."""
+        geo = self.geometry
+        params = gauss.params
+        sh_coeffs = None
+        colors = override_color
+        if colors is None:
+            sh_coeffs = gf.get_features(params, color_clip)
+        return dict(
+            means3d=params.xyz,
+            scales=gf.get_scaling(params, geo.cfg.sphere if geo is not None else False),
+            quats=params.rotation,
+            opacities=gf.get_opacity(params)[:, 0],
+            colors=colors,
+            sh_coeffs=sh_coeffs,
+            sh_degree=geo.active_sh_degree if geo is not None else 0,
+            extra_features=params.normal if self.with_normal else None,
+            alive=gauss.alive,
+        )
+
+    def _batch_forward_batched(self, cameras, views, attrs, means2d_offset) -> Dict[str, Any]:
+        """One rasterizer pass for the whole batch over one shared pool of
+        B x the per-view capacity; per-view n_pairs / n_dropped are each
+        view's share of the totals, rounded up (so the controller sees the
+        pool's demand and any drop).  The kernel background is composited
+        per view after the pass, where the loop draws it: the pass draws
+        nothing, so the generator's draws come in the loop's order (each
+        view's kernel background, then its post-processing's) and the two
+        paths give the same numbers under one seed."""
+        bs = len(cameras)
+        device = cameras[0].campos.device
+        out = rasterize_batched(
+            cameras=cameras,
+            bg_color=torch.zeros(3, device=device),
+            means2d_offset=means2d_offset,
+            with_depth=True,
+            config=RasterizeConfig(tile_size=self.cfg.tile_size,
+                                   max_pairs=self.pair_capacity * bs),
+            **attrs,
+        )
+        n_pairs_v = -(-out["n_pairs"] // bs)
+        n_dropped_v = -(-out["n_dropped"] // bs)
+        per_view = []
+        for i, view in enumerate(views):
+            kernel_bg = self._kernel_bg(view["generator"], view["training"], device,
+                                        view["draws"])
+            view_out = {
+                "image": out["image"][i] + (1.0 - out["alpha"][i][..., None]) * kernel_bg,
+                "alpha": out["alpha"][i],
+                "depth": out["depth"][i],
+                "radii": out["radii"][i],
+                "visibility": out["visibility"][i],
+                "n_pairs": n_pairs_v,
+                "n_dropped": n_dropped_v,
+            }
+            if "extra" in out:
+                view_out["extra"] = out["extra"][i]
+            per_view.append(self._post_view(view_out, **view))
         return self._stack_views(per_view)
 
     @staticmethod

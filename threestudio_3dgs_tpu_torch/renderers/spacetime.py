@@ -6,9 +6,9 @@ index (polynomial, per-frame, deformation or spline motion; see
 ``models/spacetime.py``) and rasterizes the precomputed colours SH2RGB(f_dc)
 with depth and the alpha mask.  A view without a timestamp renders at t = 0,
 frame 0.  In spline mode the knots are computed once per batch (they do not
-depend on the view).  The views render one at a time, as the other
-renderers do: the JAX package's single-pass batched render of the timed
-attributes is not ported, and the ``batched`` keys are read and ignored."""
+depend on the view).  The batch renders view by view or, under the
+Gaussian renderers' gate, in one pass of the rasterizer with each view's
+timed attributes stacked to (B, N, ...)."""
 
 from __future__ import annotations
 
@@ -34,6 +34,26 @@ class DiffGaussianRasterizerSpacetime(GaussianRendererBase):
             knots = self.geometry.control_knots(gauss, deformation_params)
         return super().batch_forward(gauss, batch, deformation_params=deformation_params,
                                      knots=knots, **kwargs)
+
+    def _batched_attrs(self, gauss, times, color_clip, override_color, deformation_params,
+                       knots) -> Dict[str, Any]:
+        """Each view's timed attributes (one ``get_timed_all`` a view at
+        its timestamp and frame index) stacked to (B, N, ...)."""
+        timed = [self.geometry.get_timed_all(
+            gauss, 0.0 if t["timestamp"] is None else t["timestamp"],
+            0 if t["frame_idx"] is None else t["frame_idx"], deformation_params, knots)
+            for t in times]
+        means3d, scales, rotations, opacity, colors = (list(a) for a in zip(*timed))
+        if override_color is not None:
+            colors = [override_color] * len(times)
+        return dict(
+            means3d=torch.stack(means3d),
+            scales=torch.stack(scales),
+            quats=torch.stack(rotations),
+            opacities=torch.stack(opacity)[..., 0],
+            colors=torch.stack(colors),
+            alive=gauss.alive,
+        )
 
     def render_one(
         self,
@@ -65,7 +85,7 @@ class DiffGaussianRasterizerSpacetime(GaussianRendererBase):
         out = rasterize(
             means3d, scales, rotations, opacity[:, 0], camera, kernel_bg, colors=colors,
             alive=gauss.alive, means2d_offset=means2d_offset, scaling_modifier=scaling_modifier,
-            config=RasterizeConfig(tile_size=self.cfg.tile_size, max_pairs=self.cfg.max_pairs),
+            config=RasterizeConfig(tile_size=self.cfg.tile_size, max_pairs=self.pair_capacity),
         )
         return {
             "render": torch.clamp(out["image"], 0.0, 1.0),

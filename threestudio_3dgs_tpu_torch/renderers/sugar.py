@@ -1,10 +1,10 @@
 """SuGaR renderers (port of the JAX package's ``renderers/sugar.py``:
 ``diff-sugar-rasterizer-normal`` and ``diff-sugar-rasterizer-shading``).
 
-The geometry's mesh-bound Gaussians are rendered view by view through the
-shared per-view loop; one blend pass carries rgb, the view depth and the
-Gaussians' face normals as extra channels, C = 7 (K1/K2 at 7 channels on
-the card).  Per view:
+The geometry's mesh-bound Gaussians are rendered view by view, or in one
+pass of the rasterizer under the Gaussian renderers' gate; one blend pass
+carries rgb, the view depth and the Gaussians' face normals as extra
+channels, C = 7 (K1/K2 at 7 channels on the card).  Per view:
 
   * ``normal`` = clip(-extra * 0.5 + 0.5): the splatted face normals, the
     sign flipped to the reference's camera convention;
@@ -18,7 +18,8 @@ The kernel background follows the Gaussian renderers' rule (inverted on a
 draw in training, always at eval).  ``diff-sugar-rasterizer-temporal``
 renders the dynamic SuGaR geometry (``models/dynamic_sugar.py``) at each
 view's timestamp and frame index (0 and 0 where the batch has none), with
-the deformation network's parameters in mode "deformation"."""
+the deformation network's parameters in mode "deformation"; on the single
+pass each view's timed arrays are stacked to (B, N, ...)."""
 
 from __future__ import annotations
 
@@ -45,6 +46,23 @@ class SuGaRRendererBase(GaussianRendererBase):
                     deformation_params=None) -> Dict[str, torch.Tensor]:
         """The rasterizer's arrays of one view: the mesh-bound Gaussians."""
         return self.geometry.as_gaussian_arrays(sugar_state, color_clip)
+
+    def _batched_attrs(self, sugar_state, times, color_clip, override_color, deformation_params,
+                       knots) -> Dict[str, Any]:
+        """The mesh-bound Gaussians once, or a temporal renderer's arrays of
+        each view at its time stacked to (B, N, ...); the face normals are
+        the extra features (C = 7)."""
+        if self.temporal:
+            per_view = [self.view_arrays(sugar_state, color_clip, t["timestamp"],
+                                         t["frame_idx"], deformation_params) for t in times]
+            arrays = {k: torch.stack([a[k] for a in per_view]) for k in per_view[0]}
+        else:
+            arrays = self.view_arrays(sugar_state, color_clip)
+        return dict(
+            means3d=arrays["means3d"], scales=arrays["scales"], quats=arrays["quats"],
+            opacities=arrays["opacities"], sh_coeffs=arrays["sh_coeffs"],
+            sh_degree=self.geometry.active_sh_degree, extra_features=arrays["normals"],
+        )
 
     def _post_view(self, out: Dict[str, Any], *, bg_params=None, rays_o=None, rays_d=None,
                    light_positions=None, generator=None, ambient_only: bool = False,
@@ -103,7 +121,7 @@ class SuGaRRendererBase(GaussianRendererBase):
             kernel_bg, sh_coeffs=arrays["sh_coeffs"], sh_degree=geo.active_sh_degree,
             extra_features=arrays["normals"], means2d_offset=means2d_offset,
             scaling_modifier=scaling_modifier, with_depth=True,
-            config=RasterizeConfig(tile_size=self.cfg.tile_size, max_pairs=self.cfg.max_pairs),
+            config=RasterizeConfig(tile_size=self.cfg.tile_size, max_pairs=self.pair_capacity),
         )
         return self._post_view(
             out, bg_params=bg_params, rays_o=rays_o, rays_d=rays_d,

@@ -17,7 +17,16 @@ background's MLP, ``extra_params["background"]``) take their own Adam step
 and ends the step with the structural update when one is due
 (``update_states``, its draws from the step's generator).  Evaluation
 renders views without gradients (the background parameters included) and
-saves validation PNGs."""
+saves validation PNGs.
+
+With the renderer's ``adaptive_max_pairs`` on, the train step sizes the
+per-view pair capacity the renderer takes (``max_pairs_override``, in
+eval renders too) with the JAX package's bucketed controller: the step's
+peak per-view pair demand and its dropped pairs are logged each step, and
+every ``_ADAPT_EVERY`` steps the capacity grows on any drop and shrinks
+with hysteresis and a cooldown.  As in the JAX package only the systems
+whose step is this base step run it (``adapts_pair_capacity``): the
+zero123 family (image-to-3D, 4D, SuGaR) keeps ``max_pairs``."""
 
 from __future__ import annotations
 
@@ -83,6 +92,11 @@ class BaseSystemConfig:
 
 class BaseGaussianSystem:
     Config = BaseSystemConfig
+    # whether train_step runs the adaptive pair-capacity controller
+    adapts_pair_capacity = True
+    _ADAPT_EVERY = 50  # steps between adaptations
+    _BUCKET = 256 * 1024  # capacity quantum
+    _SHRINK_COOLDOWN = 8 * _ADAPT_EVERY  # least steps between two shrinks
 
     def __init__(self, cfg=None, device="cuda", **kwargs):
         if cfg is None:
@@ -120,6 +134,11 @@ class BaseGaussianSystem:
             or ((opt.get("params") or {}).get("background") or {}).get("lr")
             or 1e-3
         )
+        self._capacity: Optional[int] = None  # the adaptive pair capacity
+        # (demand, dropped) of each step since the last adaptation
+        self._pair_log: List[tuple] = []
+        self._retrace_count = 0  # capacity changes, as the JAX package counts them
+        self._last_shrink_step = -(10**9)
 
     # -- state --------------------------------------------------------------
     def init_state(self, seed: int = 0) -> SystemState:
@@ -193,6 +212,50 @@ class BaseGaussianSystem:
             means2d_offset=vs_dummy,
         )
 
+    # -- adaptive pair capacity ------------------------------------------------
+    def _pair_capacity(self) -> Optional[int]:
+        """The per-view capacity the controller sets, None when it is off."""
+        rcfg = getattr(self.renderer, "cfg", None)
+        if not self.adapts_pair_capacity or not getattr(rcfg, "adaptive_max_pairs", False):
+            return None
+        if self._capacity is None:
+            self._capacity = int(rcfg.max_pairs)
+        return self._capacity
+
+    def _adapt_pair_capacity(self, step: int) -> None:
+        """Bucketed right-sizing of the per-view pair capacity from the
+        steps logged since the last adaptation: grow on any drop to
+        bucket(max(1.5 cap, 1.2 demand)); else shrink to bucket(1.4 demand)
+        when that is at least two buckets below the capacity and no shrink
+        came in the last _SHRINK_COOLDOWN steps.  Buckets are multiples of
+        _BUCKET clipped to [min_pairs, max_pairs]."""
+        if not self._pair_log or step % self._ADAPT_EVERY != 0:
+            return
+        demand = max(s[0] for s in self._pair_log)  # peak per-view pair demand
+        dropped = max(s[1] for s in self._pair_log)
+        self._pair_log.clear()
+        rcfg = self.renderer.cfg
+        cap = self._capacity
+
+        def bucket(x):
+            b = -(-x // self._BUCKET) * self._BUCKET
+            return max(min(b, int(rcfg.max_pairs)), int(rcfg.min_pairs))
+
+        if dropped > 0:
+            new_cap = bucket(max(int(cap * 3 // 2), int(demand * 1.2)))
+        else:
+            want = bucket(int(demand * 1.4))
+            new_cap = want if want <= cap - 2 * self._BUCKET else cap
+            if new_cap < cap and step - self._last_shrink_step < self._SHRINK_COOLDOWN:
+                new_cap = cap
+        if new_cap != cap:
+            if new_cap < cap:
+                self._last_shrink_step = step
+            self._retrace_count += 1
+            print(f"[system] pair capacity {cap} -> {new_cap} (demand {demand}, dropped "
+                  f"{dropped}, retrace #{self._retrace_count})", flush=True)
+            self._capacity = new_cap
+
     # -- train step ----------------------------------------------------------
     def forward_loss(self, gs, extra_params, batch, step, sched, generator):
         """The step's renders and loss (overridden per system): returns the
@@ -209,6 +272,8 @@ class BaseGaussianSystem:
     def train_step(self, state: SystemState, batch: Dict[str, Any], step: int,
                    generator: torch.Generator):
         sched = self.sched_scalars(step)
+        capacity = self._pair_capacity()
+        self.renderer.max_pairs_override = capacity
         gauss = state.gauss
         leaves = {
             k: v.detach().requires_grad_(True) for k, v in gauss.params.as_dict().items()
@@ -236,6 +301,9 @@ class BaseGaussianSystem:
         )
         logs["n_dropped_pairs"] = sum(int(o["n_dropped"].sum()) for o in outs)
         logs["n_pairs_max"] = max(int((o["n_pairs"] + o["n_dropped"]).max()) for o in outs)
+        if capacity is not None:
+            self._pair_log.append((logs["n_pairs_max"], logs["n_dropped_pairs"]))
+            self._adapt_pair_capacity(step)
         gauss, _ = self.geometry.update_states(gauss, step, generator)
         return SystemState(gauss=gauss, extra_params=extra_params, extra_opt=extra_opt), logs
 

@@ -68,6 +68,9 @@ def masked_pearson(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
 @register("gaussian-splatting-zero123-system")
 class Zero123System(BaseGaussianSystem):
     Config = Zero123SystemConfig
+    # the JAX package's zero123 step (and so its 4D and SuGaR steps) never
+    # runs the pair-capacity controller: the renderer keeps max_pairs
+    adapts_pair_capacity = False
 
     def _substep_mode(self, step: int) -> Tuple[bool, bool]:
         mode = self.cfg.freq.get("ref_or_zero123", "accumulate")

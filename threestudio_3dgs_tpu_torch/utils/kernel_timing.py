@@ -123,35 +123,53 @@ def train_view_scene(run_dir: str, device="cuda"):
                     tile_size=trainer.system.renderer.cfg.tile_size)
 
 
-def view_inputs(scene, seed: int, device="cuda", max_pairs: int = 2**21):
+def view_inputs(scene, seed: int, device="cuda", max_pairs: int = 2**21, cameras=None):
     """K1-K4's inputs for one view, as ``rasterize`` makes them: the pair
     plan, K1's and K2's pair rows (rgb, depth and the scene's ``extra``
     features where it has them), ranges and cotangent, and K3's rows,
-    offsets and counts from K2's pair gradients."""
+    offsets and counts from K2's pair gradients.  With ``cameras`` (B > 1
+    of one size) the inputs of ``rasterize_batched``'s single pass: the B
+    views' Gaussians on the grid of the views stacked as tile rows,
+    ``view_grid_y`` the tile rows of a view (0 for one view)."""
     from threestudio_3dgs_tpu_torch.ops.rasterizer import binning, blend, preprocess
 
-    cam, ts = scene["cam"], scene["tile_size"]
-    gx, gy = (cam.width + ts - 1) // ts, (cam.height + ts - 1) // ts
+    cams = list(cameras) if cameras else [scene["cam"]]
+    b, ts = len(cams), scene["tile_size"]
+    gx, gy = (cams[0].width + ts - 1) // ts, (cams[0].height + ts - 1) // ts
+    vgy = gy if b > 1 else 0
+    # the stacked grid's argument only where there is one: a tree from
+    # before the batched render is timed through the same calls
+    grid = (vgy,) if vgy else ()
     with torch.no_grad():
-        proj = preprocess.project_gaussians(scene["means"], scene["scales"], scene["quats"], cam,
-                                            ts, alive=scene["alive"])
-        plan = binning.plan_pairs(proj, gx, gy, max_pairs, ts, scene["opac"])
-        bins = binning.bin_gaussians(proj, gx, gy, max_pairs, ts, scene["opac"])
-        channels = torch.cat([scene["colors"], proj.depths[:, None]]
-                             + ([scene["extra"]] if scene.get("extra") is not None else []), dim=1)
-        feats = torch.cat([proj.means2d, proj.conics, scene["opac"][:, None], channels], dim=1)
+        projs, chans = [], []
+        for v, cam in enumerate(cams):
+            proj = preprocess.project_gaussians(scene["means"], scene["scales"], scene["quats"],
+                                                cam, ts, alive=scene["alive"])
+            shift = torch.tensor([0, v * gy], dtype=proj.tiles_min.dtype, device=device)
+            projs.append(proj._replace(tiles_min=proj.tiles_min + shift,
+                                       tiles_max=proj.tiles_max + shift))
+            chans.append(torch.cat([scene["colors"], proj.depths[:, None]]
+                                   + ([scene["extra"]] if scene.get("extra") is not None else []),
+                                   dim=1))
+        proj = preprocess.Projected(*(torch.cat(x, dim=0) for x in zip(*projs)))
+        opac = scene["opac"].repeat(b)
+        plan = binning.plan_pairs(proj, gx, b * gy, max_pairs, ts, opac, *grid)
+        bins = binning.bin_gaussians(proj, gx, b * gy, max_pairs, ts, opac, *grid)
+        channels = torch.cat(chans, dim=0)
+        feats = torch.cat([proj.means2d, proj.conics, opac[:, None], channels], dim=1)
         pair_feats = feats[bins.pair_gauss].contiguous()
         gen = torch.Generator(device=device).manual_seed(seed)
-        dims = (gx, gy, ts, channels.shape[1])
-        g_out = torch.randn((gx * gy, ts * ts, channels.shape[1] + 1), generator=gen,
+        dims = (gx, b * gy, ts, channels.shape[1])
+        g_out = torch.randn((gx * b * gy, ts * ts, channels.shape[1] + 1), generator=gen,
                             device=device)
-        out = blend.blend_forward_cuda(pair_feats, bins.tile_ranges, *dims)
-        d_pairs = blend.blend_backward_cuda(pair_feats, bins.tile_ranges, out, g_out, *dims)
+        out = blend.blend_forward_cuda(pair_feats, bins.tile_ranges, *dims, *grid)
+        d_pairs = blend.blend_backward_cuda(pair_feats, bins.tile_ranges, out, g_out, *dims,
+                                            *grid)
         seg = binning.segsum_inputs(bins, d_pairs)
     if bins.n_dropped:
         raise RuntimeError(f"{bins.n_dropped} pairs dropped")
     return dict(plan=plan, bins=bins, pair_feats=pair_feats, out=out, g_out=g_out, seg=seg,
-                dims=dims)
+                dims=dims, view_grid_y=vgy)
 
 
 def kernel_calls(inp):
@@ -159,11 +177,13 @@ def kernel_calls(inp):
     from threestudio_3dgs_tpu_torch.ops.rasterizer import blend, expand, segsum
 
     pf, out, g_out, dims = (inp[k] for k in ("pair_feats", "out", "g_out", "dims"))
+    grid = (inp["view_grid_y"],) if inp.get("view_grid_y") else ()
     ranges = inp["bins"].tile_ranges
     vals, offs, counts = inp["seg"]
     return {
-        "blend_forward": (lambda: blend.blend_forward_cuda(pf, ranges, *dims), None),
-        "blend_backward": (lambda: blend.blend_backward_cuda(pf, ranges, out, g_out, *dims), None),
+        "blend_forward": (lambda: blend.blend_forward_cuda(pf, ranges, *dims, *grid), None),
+        "blend_backward": (
+            lambda: blend.blend_backward_cuda(pf, ranges, out, g_out, *dims, *grid), None),
         "segsum_monotone": (
             lambda: segsum.segsum_cuda(vals, offs, counts),
             lambda: torch.segment_reduce(vals, "sum", lengths=counts, axis=0, unsafe=True)),
