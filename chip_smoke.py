@@ -68,6 +68,28 @@ Phases, each of which fails the run with a non-zero exit:
      the per-view ``rasterize`` (forward outputs, radii and visibility
      equal, gradients to 2e-4 x scale) with both timed fwd+bwd (median of
      10, CUDA events);
+  6c. ``train_dp`` (multi-device): (a) ``gaussian_splatting.yaml`` as
+     written for 10 steps (512^2, B = 4, fake SDS) through ``launch.main``
+     with ``trainer.devices=0`` and with ``trainer.devices=1`` (the
+     data-parallel step on a one-rank NCCL group in an in-process store):
+     fails unless the two fields (params, Adam moments, statistics) and
+     losses are equal bit for bit; the two median steps and the gradient
+     mean (``chunked_pmean`` of the field's gradients) timed; (b) the
+     trained field's 512^2 view as 4 bands of 4 tile rows through
+     ``rasterize(tile_band=...)`` against its full render (image / alpha
+     1e-5, depth 1e-4, radii and visibility equal, the bands' summed
+     gradients 1e-3 of the norm), K1-K4 launched once a band; K1-K4 held
+     and timed on one 512 x 128 band (``@band``) and on a rank's 2-view
+     stacked grid (``@dp_shard``); (c) two ranks spawned (not forked) on
+     the card, both on cuda:0 over gloo's CUDA collectives (NCCL refuses
+     two ranks on one device; one rank a card over NCCL where there are
+     two), 3 steps of the YAML through ``launch.main`` at 2 x 2 views with
+     fake-mse: fails unless both ranks' fields are bit-equal, the first
+     loss equals a one-process run's to 2e-4 relative, each rank took
+     step 0 view by view and steps 1-2 on its stacked grid (K1-K4 launched
+     there twice), and the two-rank tile renderer's gathered view equals
+     the full render (the tolerances of (b)); the gradient mean timed at
+     two ranks;
   7. Stable Diffusion guidance: write a seeded random-init checkpoint
      directory with the published stabilityai/stable-diffusion-2-1-base
      UNet, VAE and text encoder architectures (diffusers layout, f32 .bin)
@@ -219,7 +241,10 @@ Phases, each of which fails the run with a non-zero exit:
      (its ``stacked`` tags) go to its ``_stacked`` row and only its other
      launches to its single-view row; K1-K4 rows at the trained 512^2 view
      and on its batch's stacked grid (``@train_stacked``), on the stacked
-     grid of ``train_batched``'s 4 views (``@stacked``), at the MVDream view
+     grid of ``train_batched``'s 4 views (``@stacked``), on a rank's 2-view
+     stacked grid (``@dp_shard``, launches from rank 0 of ``train_dp``'s
+     two-rank run) and on one 512 x 128 tile band (``@band``, launches from
+     ``train_dp``'s 4 band renders), at the MVDream view
      and its stacked grid (``@mvdream256_stacked``), at the pred_normal
      MVDream view and its stacked grid (C = 7, ``@mvdream_pn`` and
      ``@mvdream_pn_stacked``, launches from ``train_mvdream_pred_normal``), at the
@@ -1123,6 +1148,317 @@ def train_batched(torch, native):
     del trainer
     torch.cuda.empty_cache()
     return stacked, errs, timing
+
+
+DP_STEPS = 10  # the world-1 dp run and its one-process twin
+DP_RANK_STEPS = 3  # the two-rank run: step 0 view by view, steps 1-2 on the stacked grid
+DP_BANDS = 4  # tile-row bands of the 512^2 view
+DP_PORT = ["--config", PORT_CONFIG, "--train", "trainer.val_check_interval=0",
+           "data.n_test_views=2"]
+
+
+def state_mismatches(torch, a, b):
+    """The names of the fields where two GaussianStates differ in any bit
+    (params, Adam moments and count, alive, the densify statistics)."""
+    from threestudio_3dgs_tpu_torch.models.gaussian_field import STAT_FIELDS
+
+    bad = [k for k, v in a.params.as_dict().items() if not torch.equal(v, getattr(b.params, k))]
+    bad += [f"mu/{k}" for k, v in a.adam.mu.items() if not torch.equal(v, b.adam.mu[k])]
+    bad += [f"nu/{k}" for k, v in a.adam.nu.items() if not torch.equal(v, b.adam.nu[k])]
+    bad += [k for k in ("alive",) + STAT_FIELDS
+            if not torch.equal(getattr(a, k), getattr(b, k))]
+    if a.adam.count != b.adam.count:
+        bad.append("adam/count")
+    return bad
+
+
+def state_digest(torch, gauss):
+    """One sha256 of every params, Adam moment, alive and statistics byte."""
+    import hashlib
+
+    from threestudio_3dgs_tpu_torch.models.gaussian_field import STAT_FIELDS
+
+    arrays = dict(gauss.params.as_dict())
+    arrays.update({f"mu/{k}": v for k, v in gauss.adam.mu.items()})
+    arrays.update({f"nu/{k}": v for k, v in gauss.adam.nu.items()})
+    arrays.update({k: getattr(gauss, k) for k in ("alive",) + STAT_FIELDS})
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(arrays[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def time_grad_mean(torch, gauss, group, label):
+    """``chunked_pmean`` over tensors shaped like one dp step's field
+    gradients (CUDA events around 20 calls, after a warm-up): its ms and
+    the bytes it reduces.  Returns (ms, bytes)."""
+    from threestudio_3dgs_tpu_torch.parallel.data_parallel import chunked_pmean
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import wrapper_ms
+
+    grads = {k: torch.ones_like(v) for k, v in gauss.params.as_dict().items()}
+    nbytes = sum(v.numel() * v.element_size() for v in grads.values())
+    ms = wrapper_ms(lambda: chunked_pmean(grads, group), 20)
+    log(f"{label}: chunked_pmean of the field's gradients ({nbytes} bytes, "
+        f"{len(grads)} leaves): {ms:.4f} ms a step")
+    return ms, nbytes
+
+
+def band_scene(torch, scene):
+    """The scene's alive rows as leaves that take gradients, for renders
+    without the capacity mask (the tile renderer's five inputs)."""
+    alive = scene["alive"]
+    return [scene[k][alive].detach().clone().requires_grad_(True)
+            for k in ("means", "scales", "quats", "opac", "colors")]
+
+
+def band_vs_full(torch, native, scene):
+    """(b): the view rendered whole and as DP_BANDS bands of tile rows
+    through ``rasterize(tile_band=...)``, each with the gradients of
+    sum(image^2) + 0.2 sum(alpha): the stitched bands equal the full render
+    (image / alpha 1e-5, depth 1e-4, radii and the bands' union of
+    visibility exactly) and the bands' summed gradients the full render's
+    (1e-3 of the norm).  Returns the bands' launches."""
+    from threestudio_3dgs_tpu_torch.ops.rasterizer import RasterizeConfig, rasterize
+    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+
+    cam, ts = scene["cam"], scene["tile_size"]
+    rows = cam.height // ts // DP_BANDS
+    bg = torch.tensor([1.0, 1.0, 1.0], device="cuda")
+    results = {}
+    for name, bands in (("full", [None]), ("bands", [(b * rows, rows) for b in range(DP_BANDS)])):
+        leaves = band_scene(torch, scene)
+        native.reset_launches()
+        outs = [rasterize(*leaves[:4], cam, bg, colors=leaves[4], config=RasterizeConfig(
+            tile_size=ts), tile_band=band) for band in bands]
+        loss = sum(torch.sum(o["image"] ** 2) + 0.2 * torch.sum(o["alpha"]) for o in outs)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        out = {k: torch.cat([o[k] for o in outs]).detach() for k in ("image", "alpha", "depth")}
+        out.update(radii=outs[0]["radii"], dropped=sum(o["n_dropped"] for o in outs),
+                   visibility=torch.stack([o["visibility"] for o in outs]).any(dim=0))
+        results[name] = (out, grads, dict(native.LAUNCHES))
+    (full, g_full, _), (band, g_band, launches) = results["full"], results["bands"]
+    errs = {k: float((band[k] - full[k]).abs().max()) for k in ("image", "alpha", "depth")}
+    rel = [float(torch.linalg.norm(a - b)) / float(torch.linalg.norm(b))
+           for a, b in zip(g_band, g_full)]
+    if (errs["image"] > 1e-5 or errs["alpha"] > 1e-5 or errs["depth"] > 1e-4 or max(rel) > 1e-3
+            or not torch.equal(band["radii"], full["radii"])
+            or not torch.equal(band["visibility"], full["visibility"])
+            or full["dropped"] or band["dropped"]):
+        fail(f"tile bands vs the full render: max |diff| {errs}, gradients {rel}, radii equal "
+             f"{torch.equal(band['radii'], full['radii'])}, visibility equal "
+             f"{torch.equal(band['visibility'], full['visibility'])}, dropped "
+             f"{full['dropped']} / {band['dropped']}")
+    if any(launches[k] != DP_BANDS for k in RASTER_KERNELS):
+        fail(f"tile bands: launches {launches}, want {DP_BANDS} of each of {RASTER_KERNELS}")
+    log(f"tile bands: {DP_BANDS} bands of {rows} tile rows ({cam.width}x{rows * ts} each) of "
+        f"the {cam.height}x{cam.width} view equal the full render: max |diff| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + ", radii and visibility equal; summed gradients vs full (norm-relative) "
+        + ", ".join(f"{v:.2e}" for v in rel) + f"; launches {launches}")
+    return launches
+
+
+def dp_rank(rank, world, init_file, out_dir, argv):
+    """(c): one rank of the two-rank run: ``launch.main`` (the trainer
+    shards the camera batch over the group), then the tile renderer over
+    the group on the trained field's view against the full render, and the
+    gradient mean timed.  Pickles its results to ``out_dir``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    n_dev = torch.cuda.device_count()
+    dev = rank if n_dev >= world else 0
+    torch.cuda.set_device(dev)
+    # NCCL refuses two ranks on one card: gloo (its CUDA collectives) there
+    backend = "nccl" if n_dev >= world else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{init_file}", world_size=world,
+                            rank=rank)
+    try:
+        from threestudio_3dgs_tpu_torch import launch
+        from threestudio_3dgs_tpu_torch.ops import native
+        from threestudio_3dgs_tpu_torch.ops.rasterizer import RasterizeConfig, rasterize
+        from threestudio_3dgs_tpu_torch.parallel.tile_parallel import (
+            gather_bands, make_tile_parallel_rasterize)
+        from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+
+        native.reset_launches()
+        t0 = time.perf_counter()
+        trainer = launch.main(argv + ["--device", f"cuda:{dev}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = dict(backend=backend, device=dev, wall=wall, launches=dict(native.LAUNCHES),
+                   stacked={k: native.SHAPE_LAUNCHES.get((k, "stacked"), 0)
+                            for k in RASTER_KERNELS},
+                   paths={p: n for (p, training), n in trainer.system.renderer.path_counts.items()
+                          if training},
+                   dp_steps=sorted(trainer.system._dp_steps),
+                   losses=[row["train/loss_total"] for row in trainer.metrics_log],
+                   step_ms=[row["step_s"] * 1e3 for row in trainer.metrics_log],
+                   digest=state_digest(torch, trainer.state.gauss))
+
+        scene = trained_scene(torch, trainer)
+        ts = scene["tile_size"]
+        bg = torch.tensor([1.0, 1.0, 1.0], device="cuda")
+        cfg = RasterizeConfig(tile_size=ts)
+        leaves = band_scene(torch, scene)
+        f = make_tile_parallel_rasterize(dist.group.WORLD, scene["cam"], bg, config=cfg)
+        out = f(*leaves)
+        whole = gather_bands(out, dist.group.WORLD)
+        g_band = torch.autograd.grad(torch.sum(out["image"] ** 2) + torch.sum(out["alpha"]),
+                                     leaves)
+        leaves_full = band_scene(torch, scene)
+        full = rasterize(*leaves_full[:4], scene["cam"], bg, colors=leaves_full[4], config=cfg)
+        g_full = torch.autograd.grad(torch.sum(full["image"] ** 2) + torch.sum(full["alpha"]),
+                                     leaves_full)
+        res["tile"] = dict(
+            band_shape=tuple(out["image"].shape),
+            errs={k: float((whole[k] - full[k].detach()).abs().max())
+                  for k in ("image", "alpha", "depth")},
+            radii_equal=bool(torch.equal(out["radii"], full["radii"])),
+            visibility_equal=bool(torch.equal(out["visibility"], full["visibility"])),
+            grad_rel=[float(torch.linalg.norm(a - b)) / float(torch.linalg.norm(b))
+                      for a, b in zip(g_band, g_full)],
+            dropped=out["n_dropped"])
+        res["grad_mean_ms"], res["grad_mean_bytes"] = time_grad_mean(
+            torch, trainer.state.gauss, dist.group.WORLD,
+            f"rank {rank} ({backend}, {world} ranks)")
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def two_ranks(torch, run_dir, argv, world=2):
+    """(c) in ``world`` spawned processes (not forked: this process holds
+    CUDA), rendezvousing through a file; their results by rank."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    os.makedirs(run_dir, exist_ok=True)
+    init_file = os.path.join(run_dir, "rendezvous")
+    if os.path.exists(init_file):
+        os.remove(init_file)
+    mp.start_processes(dp_rank, args=(world, init_file, run_dir, argv), nprocs=world,
+                       join=True, start_method="spawn")
+    results = []
+    for r in range(world):
+        with open(os.path.join(run_dir, f"rank{r}.pkl"), "rb") as fh:
+            results.append(pickle.load(fh))
+    return results
+
+
+def train_dp(torch, native):
+    """The multi-device slice on the card: (a) ``gaussian_splatting.yaml``
+    as written for DP_STEPS steps (fake SDS) with ``trainer.devices=0`` and
+    with ``trainer.devices=1`` (the dp step on a one-rank NCCL group),
+    states equal bit for bit; (b) the trained field's 512^2 view as
+    DP_BANDS tile-row bands against the full render; (c) two ranks spawned
+    on the card (both on cuda:0 over gloo's CUDA collectives, or one a
+    card over NCCL where there are two), DP_RANK_STEPS steps of the YAML at
+    2 x 2 views with fake-mse: bit-equal states, the first loss equal to
+    the one-process run's to 2e-4 relative, each rank's steps 1+ on its
+    stacked grid, and the two-rank tile renderer against the full render.
+    Returns the rows' inputs: (stacked launches of rank 0, band launches,
+    band errors and timing, dp_shard errors and timing)."""
+    import torch.distributed as dist
+
+    from threestudio_3dgs_tpu_torch import launch
+    from threestudio_3dgs_tpu_torch.parallel.mesh import initialize_distributed
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
+    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+
+    t_phase = time.perf_counter()
+    fake = ["system.guidance_type=fake-sds-guidance", f"trainer.max_steps={DP_STEPS}"]
+    runs, walls = {}, {}
+    for devices in (0, 1):
+        t0 = time.perf_counter()
+        runs[devices] = launch.main(DP_PORT + fake + [
+            f"trainer.devices={devices}", f"exp_root_dir={os.path.join(RUN_DIR, f'dp{devices}')}"])
+        torch.cuda.synchronize()
+        walls[devices] = time.perf_counter() - t0
+    plain, dp = runs[0], runs[1]
+    bad = state_mismatches(torch, plain.state.gauss, dp.state.gauss)
+    losses = [[row["train/loss_total"] for row in tr.metrics_log] for tr in (plain, dp)]
+    if (bad or losses[0] != losses[1] or sorted(dp.system._dp_steps) != [("dp", 1, 4)]
+            or plain.system._dp_steps or dist.is_initialized()):
+        fail(f"train_dp (a): fields differ in {bad}; losses {losses}; dp steps "
+             f"{sorted(dp.system._dp_steps)} / {sorted(plain.system._dp_steps)}; group left "
+             f"{dist.is_initialized()}")
+    step_ms = {d: statistics.median(row["step_s"] * 1e3 for row in tr.metrics_log[1:])
+               for d, tr in runs.items()}
+    log(f"train_dp (a): {DP_STEPS} steps of gaussian_splatting.yaml (fake SDS, 4 x 512^2): "
+        f"trainer.devices=1 (the dp step on a one-rank NCCL group) equals devices=0 bit for bit "
+        f"(params, Adam moments, statistics; losses {losses[0][0]:.6g} .. {losses[0][-1]:.6g}); "
+        f"median step (steps 2-{DP_STEPS}) {step_ms[1]:.1f} ms dp vs {step_ms[0]:.1f} ms plain; "
+        f"wall {walls[1]:.2f} / {walls[0]:.2f} s incl. setup and 2 test renders")
+    initialize_distributed("nccl", world_size=1, rank=0, force=True)
+    try:
+        ms1, nbytes = time_grad_mean(torch, dp.state.gauss, dist.group.WORLD,
+                                     "train_dp (a) one rank (nccl)")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) the tile bands of the trained view, and K1-K4 on one band and on
+    # a rank's 2-view stacked grid (held against their plain twins, timed)
+    scene = trained_scene(torch, plain)
+    band_launches = band_vs_full(torch, native, scene)
+    rows = scene["cam"].height // scene["tile_size"] // DP_BANDS
+    band_inp = view_inputs(scene, seed=16, tile_band=(rows, rows))
+    band_errs = check_kernels(torch, band_inp, "band")
+    log(f"band timing (band 1 of {DP_BANDS}: {scene['cam'].width}x{rows * scene['tile_size']}; "
+        f"these go in the kernels line):")
+    band_timing = time_kernels(torch, band_inp, "band")
+    shard_scene, cams = batched_views(torch, plain, DP_STEPS)
+    shard_inp = view_inputs(shard_scene, seed=17, cameras=cams[:2])
+    shard_errs, shard_timing = hold_stacked(torch, shard_inp, cams[:2], "dp_shard")
+    del band_inp, shard_inp, runs, plain, dp
+    torch.cuda.empty_cache()
+
+    # (c) two ranks; the one-process run's first loss with fake-mse first
+    mse = ["system.guidance_type=fake-mse-guidance"]
+    one = launch.main(DP_PORT + mse + ["trainer.max_steps=1",
+                                       f"exp_root_dir={os.path.join(RUN_DIR, 'dp_mse1')}"])
+    loss_one = one.metrics_log[0]["train/loss_total"]
+    del one
+    torch.cuda.empty_cache()
+    ranks = two_ranks(torch, os.path.join(RUN_DIR, "dp_ranks"), DP_PORT + mse + [
+        f"trainer.max_steps={DP_RANK_STEPS}", f"exp_root_dir={os.path.join(RUN_DIR, 'dp2')}"])
+    r0 = ranks[0]
+    want_paths = {"loop": 1, "batched": DP_RANK_STEPS - 1}
+    problems = []
+    if any(r["digest"] != r0["digest"] or r["losses"] != r0["losses"] for r in ranks):
+        problems.append("the ranks' states or losses differ")
+    if not np.isclose(r0["losses"][0], loss_one, rtol=2e-4, atol=0):
+        problems.append(f"first loss {r0['losses'][0]} vs one process {loss_one}")
+    for r in ranks:
+        if r["dp_steps"] != [("dp", 2, 4)] or r["paths"] != want_paths:
+            problems.append(f"dp steps {r['dp_steps']}, paths {r['paths']}")
+        if any(r["stacked"][k] != DP_RANK_STEPS - 1 for k in RASTER_KERNELS):
+            problems.append(f"stacked launches {r['stacked']}")
+        t = r["tile"]
+        if (t["errs"]["image"] > 1e-5 or t["errs"]["alpha"] > 1e-5 or t["errs"]["depth"] > 1e-4
+                or not (t["radii_equal"] and t["visibility_equal"]) or max(t["grad_rel"]) > 1e-3
+                or t["dropped"]):
+            problems.append(f"tile renderer {t}")
+    if problems:
+        fail(f"train_dp (c): {problems}")
+    log(f"train_dp (c): 2 ranks ({r0['backend']}, cuda:{ranks[0]['device']} / "
+        f"cuda:{ranks[1]['device']}), {DP_RANK_STEPS} steps of gaussian_splatting.yaml "
+        f"(fake-mse, 2 x 2 views at 512^2): states bit-equal (sha256 {r0['digest'][:16]}), losses "
+        f"{r0['losses']}, first vs one process {loss_one:.6g} (rel "
+        f"{abs(r0['losses'][0] - loss_one) / abs(loss_one):.2e}); paths {r0['paths']}; stacked "
+        f"launches {r0['stacked']}; median step {statistics.median(r0['step_ms'][1:]):.1f} ms; "
+        f"wall {r0['wall']:.2f} s; tile renderer bands {r0['tile']['band_shape']}: max |diff| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in r0["tile"]["errs"].items())
+        + f", gradients {max(r0['tile']['grad_rel']):.2e}; gradient mean {ms1:.4f} ms at one "
+        f"rank, {r0['grad_mean_ms']:.4f} ms at two ({nbytes} bytes)")
+    log(f"train_dp: {time.perf_counter() - t_phase:.1f} s")
+    return r0["stacked"], band_launches, band_errs, band_timing, shard_errs, shard_timing
 
 
 def write_sd_checkpoint(torch):
@@ -2469,6 +2805,8 @@ def main():
 
     full_run(torch, native)
     batched_launches, batched_errs, batched_timing = train_batched(torch, native)
+    (dp_launches, band_launches, band_errs, band_timing, shard_errs,
+     shard_timing) = train_dp(torch, native)
 
     write_sd_checkpoint(torch)
     k5_errs = check_flash(torch)
@@ -2590,6 +2928,10 @@ def main():
               train_stk_timing[name]) for name in raster]
     rows += [(f"{name}@stacked", name, batched_launches[name], batched_errs[name],
               batched_timing[name]) for name in raster]
+    rows += [(f"{name}@dp_shard", name, dp_launches[name], shard_errs[name],
+              shard_timing[name]) for name in raster]
+    rows += [(f"{name}@band", name, band_launches[name], band_errs[name], band_timing[name])
+             for name in raster]
     rows += [(f"{name}@mvdream256", name, mv_launches[name], mv_errs[name], mv_timing[name])
              for name in raster]
     rows += [(f"{name}@mvdream256_stacked", name, mv_stacked[name], mv_stk_errs[name],

@@ -1239,3 +1239,86 @@ def test_blend_kernels_on_timed_sugar_view(cuda, tmp_path):
     native.reset_launches()
     check_blend_kernels(inp["pair_feats"], inp["bins"].tile_ranges, inp["g_out"], inp["dims"])
     assert native.SHAPE_LAUNCHES == {("blend_forward", "C7"): 2, ("blend_backward", "C7"): 2}
+
+
+def band_renders(scene, device, ts, n_bands):
+    """The scene's full render and its n_bands tile-row bands
+    (``rasterize(tile_band=...)``), each with the gradients of
+    sum(image^2) + 0.2 sum(alpha) (the bands' summed)."""
+    leaves = [scene[k].detach().to(device).requires_grad_(True)
+              for k in ("means", "scales", "quats", "opac", "colors")]
+    size = scene["cam"].height
+    cam = pcam.camera_from_c2w(lookat_c2w([0.0, -2.5, 0.3]), 0.9, 0.9, size, size,
+                               device=device)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=device)
+    cfg = RasterizeConfig(tile_size=ts)
+    rows = size // ts // n_bands
+    results = []
+    for bands in ([None], [(b * rows, rows) for b in range(n_bands)]):
+        outs = [rasterize(*leaves[:4], cam, bg, colors=leaves[4], config=cfg, tile_band=band)
+                for band in bands]
+        loss = sum(torch.sum(o["image"] ** 2) + 0.2 * torch.sum(o["alpha"]) for o in outs)
+        out = {k: torch.cat([o[k] for o in outs]).detach() for k in ("image", "alpha", "depth")}
+        out["radii"] = outs[0]["radii"]
+        out["visibility"] = torch.stack([o["visibility"] for o in outs]).any(dim=0)
+        out["n_dropped"] = sum(o["n_dropped"] for o in outs)
+        results.append((out, torch.autograd.grad(loss, leaves)))
+    return results
+
+
+def test_band_render_on_card(cuda):
+    """4 tile-row bands of a 128^2 view on the card: stitched, they equal
+    the full render (image / alpha 1e-5, depth 1e-4, radii and visibility
+    exactly; the bands' summed gradients to 1e-3 relative), every band
+    launched K1-K4, and the bands equal the same bands on the CPU."""
+    scene = make_scene(cuda, n=2000, size=128, seed=5)
+    native.reset_launches()
+    (full, g_full), (band, g_band) = band_renders(scene, cuda, 16, 4)
+    launches = dict(native.LAUNCHES)
+    assert all(launches[k] == 5 for k in RASTER_KERNELS), launches  # 1 full + 4 bands
+    assert full["n_dropped"] == band["n_dropped"] == 0
+    for name, tol in (("image", 1e-5), ("alpha", 1e-5), ("depth", 1e-4)):
+        assert float((band[name] - full[name]).abs().max()) <= tol, name
+    assert torch.equal(band["radii"], full["radii"])
+    assert torch.equal(band["visibility"], full["visibility"])
+    for gb, gf in zip(g_band, g_full):
+        assert float(torch.linalg.norm(gb - gf)) <= 1e-3 * float(torch.linalg.norm(gf))
+    (_, _), (band_cpu, g_cpu) = band_renders(scene, torch.device("cpu"), 16, 4)
+    for name in ("image", "alpha", "depth"):
+        assert float((band[name].cpu() - band_cpu[name]).abs().max()) <= 6e-4, name
+    for gb, gc in zip(g_band, g_cpu):
+        assert float((gb.cpu() - gc).abs().max()) <= 1e-3 * float(gc.abs().max())
+
+
+def test_dp_step_world1_nccl_matches_plain(cuda, tmp_path):
+    """trainer.devices=1 on the card: the data-parallel step on a one-rank
+    NCCL group (sum over one rank, divided by 1) gives the one-process
+    step's state bit for bit after 4 steps at 4 views (the single pass from
+    step 1), its group destroyed after."""
+    import torch.distributed as dist
+
+    from threestudio_3dgs_tpu_torch.trainer import Trainer
+    from threestudio_3dgs_tpu_torch.utils.config import load_config
+
+    states = {}
+    for devices in (0, 1):
+        cfg = load_config(PORT_CONFIG, [
+            "trainer.max_steps=4", "trainer.val_check_interval=0", "data.width=128",
+            "data.height=128", "data.batch_size=4", "system.geometry.init_num_pts=1024",
+            "system.geometry.capacity=4096", "system.guidance_type=fake-sds-guidance",
+            f"trainer.devices={devices}", f"exp_root_dir={tmp_path / str(devices)}"])
+        tr = Trainer(cfg, device="cuda")
+        try:
+            assert (tr.mesh is None) == (devices == 0)
+            if devices:
+                assert dist.get_backend() == "nccl"
+            tr.fit()
+            states[devices] = tr.state.gauss
+            steps = sorted(tr.system._dp_steps)
+        finally:
+            tr.close()
+    assert steps == [("dp", 1, 4)] and not dist.is_initialized()
+    for k, v in states[0].params.as_dict().items():
+        assert torch.equal(getattr(states[1].params, k), v), k
+    for k in ("max_radii2d", "xyz_grad_accum", "denom"):
+        assert torch.equal(getattr(states[1], k), getattr(states[0], k)), k

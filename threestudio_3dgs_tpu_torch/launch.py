@@ -7,13 +7,26 @@ without that flag it raises rather than carry on on the CPU.  ``--train``
 runs ``Trainer.fit`` (from ``--resume``'s checkpoint when given) and then
 the test renders.  ``--validate`` and ``--test`` render the state of
 ``--resume``'s checkpoint, or a fresh init without one; ``--predict`` and
-``--export`` follow on the trained or loaded state."""
+``--export`` follow on the trained or loaded state.
+
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` in the
+environment, world size above 1) each process is one rank: the group is
+initialised on NCCL with the rank on ``cuda:LOCAL_RANK``, or on gloo with
+``--device cpu``, the trainer shards the camera batch over the ranks
+(``trainer.devices``), rank 0 alone writes, and the group is destroyed at
+the end:
+
+    torchrun --nproc-per-node N -m threestudio_3dgs_tpu_torch.launch --config <yaml> --train
+
+A run without ``torchrun`` is unchanged."""
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(name: str) -> torch.device:
@@ -39,13 +52,35 @@ def main(argv=None):
     parser.add_argument("overrides", nargs="*", help="dotlist key=value overrides")
     args = parser.parse_args(argv)
 
-    from .trainer import Trainer
+    from .parallel.mesh import initialize_distributed
     from .utils.config import load_config
 
     device = resolve_device(args.device)
-    cfg = load_config(args.config, args.overrides)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    owns_group = False
+    if world > 1:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        owns_group = initialize_distributed("nccl" if device.type == "cuda" else "gloo")
+    try:
+        return _run(args, load_config(args.config, args.overrides), device)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _run(args, cfg, device):
+    from .trainer import Trainer
+
     if args.resume:
         cfg.resume = args.resume
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        # one trial directory for every rank: rank 0's timestamp
+        stamp = [cfg.timestamp]
+        dist.broadcast_object_list(stamp, src=0)
+        cfg.timestamp = stamp[0]
+        cfg.set_dirs()
     trainer = Trainer(cfg, device=device)
     if args.train:
         trainer.fit(resume=cfg.resume)
@@ -60,6 +95,7 @@ def main(argv=None):
         trainer.predict()
     if args.export:
         trainer.export()
+    trainer.close()
     return trainer
 
 

@@ -374,15 +374,31 @@ def apply_gradients(state: GaussianState, grads: Dict[str, torch.Tensor],
 
 
 @torch.no_grad()
+def view_stats(radii: torch.Tensor, visibility: torch.Tensor,
+               vs_grad_norm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, CAP) per-view radii (f32), visibility and means2d gradient norms
+    -> the batch's (CAP,) radii max, visible gradient-norm sum and
+    visibility count, the three terms ``add_stats`` takes (and the
+    data-parallel step reduces over its ranks first: max, sum, sum)."""
+    grad_sum = torch.where(visibility, vs_grad_norm, torch.zeros_like(vs_grad_norm)).sum(dim=0)
+    return radii.amax(dim=0), grad_sum, visibility.float().sum(dim=0)
+
+
+@torch.no_grad()
+def add_stats(state: GaussianState, radii_max: torch.Tensor, grad_sum: torch.Tensor,
+              vis_count: torch.Tensor) -> GaussianState:
+    """Fold a batch's (CAP,) ``view_stats`` into the densify statistics, in
+    place."""
+    state.max_radii2d.copy_(torch.maximum(state.max_radii2d, radii_max))
+    state.xyz_grad_accum.add_(grad_sum)
+    state.denom.add_(vis_count)
+    return state
+
+
 def accumulate_stats(state: GaussianState, radii: torch.Tensor,
                      visibility: torch.Tensor, vs_grad_norm: torch.Tensor) -> GaussianState:
     """radii, visibility, vs_grad_norm: (B, CAP) per view."""
-    state.max_radii2d.copy_(torch.maximum(state.max_radii2d, radii.amax(dim=0)))
-    state.xyz_grad_accum.add_(
-        torch.where(visibility, vs_grad_norm, torch.zeros_like(vs_grad_norm)).sum(dim=0)
-    )
-    state.denom.add_(visibility.float().sum(dim=0))
-    return state
+    return add_stats(state, *view_stats(radii, visibility, vs_grad_norm))
 
 
 # ---------------------------------------------------------------------------
@@ -563,6 +579,10 @@ class GaussianField:
     def accumulate_stats(self, state: GaussianState, radii: torch.Tensor,
                          visibility: torch.Tensor, vs_grad_norm: torch.Tensor) -> GaussianState:
         return accumulate_stats(state, radii, visibility, vs_grad_norm)
+
+    def add_stats(self, state: GaussianState, radii_max: torch.Tensor, grad_sum: torch.Tensor,
+                  vis_count: torch.Tensor) -> GaussianState:
+        return add_stats(state, radii_max, grad_sum, vis_count)
 
     def update_states(self, state: GaussianState, iteration: int,
                       generator: Optional[torch.Generator] = None,

@@ -35,8 +35,11 @@ view's share of the totals, rounded up, as the JAX package reports them).
 Draws (the kernel background's inversion, the neural background's
 augmentation, the material's) come from the step's generator, view by view
 in that order on either path; the test-only ``draws`` keyword (one dict per
-view) feeds them in instead.  A renderer's ``path_counts`` counts the path
-each of its ``batch_forward`` calls took.
+view) feeds them in instead, and so do a batch's ``view_draws/<name>``
+entries (``batch_view_draws``: the whole camera batch's draws, taken in the
+same order, which the data-parallel step shards with the cameras so that a
+view's draws do not depend on the rank that renders it).  A renderer's
+``path_counts`` counts the path each of its ``batch_forward`` calls took.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ from ..ops.rasterizer import RasterizeConfig, rasterize, rasterize_batched
 from ..utils.config import parse_structured
 from ..utils.draws import uniforms
 from ..utils.registry import register
+
+VIEW_DRAWS = "view_draws/"  # batch entries (B, n): each view's uniforms by name
 
 
 @dataclasses.dataclass
@@ -132,6 +137,31 @@ class GaussianRendererBase:
         cap = self.pair_capacity
         return (self.cfg.batched and bs > 1 and cap <= self.cfg.batched_max_pairs
                 and self._batched_key_fits(bs, cap, height, width))
+
+    def view_draw_sizes(self) -> Dict[str, int]:
+        """The uniforms a training view of ``batch_forward`` takes from the
+        generator, by name, in the order it takes them: the kernel
+        background's inversion, then (in the view's post-processing) the
+        neural background's augmentation and the material's shading."""
+        sizes = {} if self.with_background else {"invert_bg": 1}
+        if self.with_background and self.background is not None:
+            if getattr(self.background.cfg, "random_aug", False):
+                sizes["bg_aug"] = 2
+        if self.with_shading and self.material is not None:
+            if self.material.cfg.soft_shading:
+                sizes["soft"] = 1
+            sizes["mode"] = 2
+        return sizes
+
+    def batch_view_draws(self, generator: torch.Generator, bs: int) -> Dict[str, torch.Tensor]:
+        """The draws a training ``batch_forward`` of ``bs`` views would take
+        from ``generator``, taken now in its order, as batch entries
+        ``view_draws/<name>`` of shape (bs, n), which ``batch_forward``
+        then reads instead of the generator."""
+        sizes = self.view_draw_sizes()
+        per_view = [{name: torch.rand((n,), generator=generator, device=generator.device)
+                     for name, n in sizes.items()} for _ in range(bs)]
+        return {VIEW_DRAWS + name: torch.stack([d[name] for d in per_view]) for name in sizes}
 
     def _kernel_bg(self, generator: Optional[torch.Generator], training: bool, device,
                    draws: Optional[Dict[str, Any]] = None):
@@ -286,6 +316,9 @@ class GaussianRendererBase:
         bs = c2w.shape[0]
         height, width = int(batch["height"]), int(batch["width"])
         device = self.state_device(gauss)
+        names = [k for k in batch if k.startswith(VIEW_DRAWS)]
+        if draws is None and names:
+            draws = [{k[len(VIEW_DRAWS):]: batch[k][i] for k in names} for i in range(bs)]
         cameras, times, views = [], [], []
         for i in range(bs):
             fovy = float(batch["fovy"][i])

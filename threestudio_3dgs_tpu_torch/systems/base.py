@@ -26,19 +26,28 @@ peak per-view pair demand and its dropped pairs are logged each step, and
 every ``_ADAPT_EVERY`` steps the capacity grows on any drop and shrinks
 with hysteresis and a cooldown.  As in the JAX package only the systems
 whose step is this base step run it (``adapts_pair_capacity``): the
-zero123 family (image-to-3D, 4D, SuGaR) keeps ``max_pairs``."""
+zero123 family (image-to-3D, 4D, SuGaR) keeps ``max_pairs``.
+
+With a mesh (``set_mesh``, from the trainer in a multi-rank run or with
+``trainer.devices`` >= 1) the base step runs camera-sharded over the mesh's
+ranks (``parallel/data_parallel.py``): ``local_gradients`` on this rank's
+shard, the reductions, then ``finish_step``, the same tail as the
+one-process step.  Only the base step shards (``shards_camera_batch``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import gaussian_field as gf
 from ..models.optim import AdamState, adam_update, init_adam
+from ..parallel.data_parallel import make_dp_train_step, shard_batch
 from ..utils.config import C, C_max, parse_structured
 from ..utils.loss import tv_loss
 from ..utils.registry import find
@@ -97,6 +106,8 @@ class BaseGaussianSystem:
     _ADAPT_EVERY = 50  # steps between adaptations
     _BUCKET = 256 * 1024  # capacity quantum
     _SHRINK_COOLDOWN = 8 * _ADAPT_EVERY  # least steps between two shrinks
+    # whether train_step is this base step, which the dp routing shards
+    shards_camera_batch = True
 
     def __init__(self, cfg=None, device="cuda", **kwargs):
         if cfg is None:
@@ -139,6 +150,9 @@ class BaseGaussianSystem:
         self._pair_log: List[tuple] = []
         self._retrace_count = 0  # capacity changes, as the JAX package counts them
         self._last_shrink_step = -(10**9)
+        self.mesh = None  # the data-parallel mesh (set_mesh)
+        self._dp_axis = "data"
+        self._dp_steps: Dict[tuple, Any] = {}  # ("dp", ranks with a shard, batch) -> step
 
     # -- state --------------------------------------------------------------
     def init_state(self, seed: int = 0) -> SystemState:
@@ -269,11 +283,12 @@ class BaseGaussianSystem:
         total, logs = self.compute_loss(out, gs, batch, sched, generator)
         return total, dict(logs), [out], vs_dummy
 
-    def train_step(self, state: SystemState, batch: Dict[str, Any], step: int,
-                   generator: torch.Generator):
-        sched = self.sched_scalars(step)
-        capacity = self._pair_capacity()
-        self.renderer.max_pairs_override = capacity
+    def local_gradients(self, state: SystemState, batch: Dict[str, Any], step: int, sched,
+                        generator: torch.Generator):
+        """The step's loss on ``batch`` and its gradients: (the field's
+        gradients by leaf, the extra parameters' by "group/name", the render
+        outputs, the (B, CAP) means2d gradient norms, the logs with the
+        batch's pair counts: drops summed, the largest per-view demand)."""
         gauss = state.gauss
         leaves = {
             k: v.detach().requires_grad_(True) for k, v in gauss.params.as_dict().items()
@@ -288,24 +303,84 @@ class BaseGaussianSystem:
         grads = torch.autograd.grad(total, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
         g_gauss = dict(zip(leaves.keys(), grads[:len(leaves)]))
-        gauss = self.geometry.apply_gradients(gauss, g_gauss, sched["lrs"])
-        extra_params, extra_opt = state.extra_params, state.extra_opt
-        if extra:
-            g_extra = dict(zip(extra.keys(), grads[len(leaves):-1]))
-            new = adam_update({k: v.detach() for k, v in extra.items()}, g_extra, extra_opt,
-                              {k: self.extra_lr for k in extra}, eps=1e-8)
-            extra_params = unflatten_extra(new)
+        g_extra = dict(zip(extra.keys(), grads[len(leaves):-1]))
         vs_grad_norm = torch.linalg.norm(grads[-1], dim=-1)  # (B, CAP), NDC units
-        gauss = self.geometry.accumulate_stats(
-            gauss, outs[-1]["radii"].float(), outs[-1]["visibility_filter"], vs_grad_norm
-        )
         logs["n_dropped_pairs"] = sum(int(o["n_dropped"].sum()) for o in outs)
         logs["n_pairs_max"] = max(int((o["n_pairs"] + o["n_dropped"]).max()) for o in outs)
+        return g_gauss, g_extra, outs, vs_grad_norm, logs
+
+    def finish_step(self, state: SystemState, g_gauss, g_extra, logs, step: int, sched,
+                    generator: torch.Generator, capacity: Optional[int],
+                    add_stats: Callable) -> tuple:
+        """Adam on the field and the extra parameters, the densify
+        statistics (``add_stats(gauss)``), the capacity controller and the
+        structural update: the part of a step after its gradients, run
+        alike by the one-process and the data-parallel steps."""
+        gauss = self.geometry.apply_gradients(state.gauss, g_gauss, sched["lrs"])
+        extra_params, extra_opt = state.extra_params, state.extra_opt
+        if g_extra:
+            params = {k: v.detach() for k, v in flatten_extra(state.extra_params).items()}
+            new = adam_update(params, g_extra, extra_opt, {k: self.extra_lr for k in params},
+                              eps=1e-8)
+            extra_params = unflatten_extra(new)
+        gauss = add_stats(gauss)
         if capacity is not None:
             self._pair_log.append((logs["n_pairs_max"], logs["n_dropped_pairs"]))
             self._adapt_pair_capacity(step)
         gauss, _ = self.geometry.update_states(gauss, step, generator)
         return SystemState(gauss=gauss, extra_params=extra_params, extra_opt=extra_opt), logs
+
+    def train_step(self, state: SystemState, batch: Dict[str, Any], step: int,
+                   generator: torch.Generator):
+        if self.mesh is not None and self.shards_camera_batch:
+            return self._dp_step(state, batch, step, generator)
+        sched = self.sched_scalars(step)
+        capacity = self._pair_capacity()
+        self.renderer.max_pairs_override = capacity
+        g_gauss, g_extra, outs, vs_grad_norm, logs = self.local_gradients(state, batch, step,
+                                                                          sched, generator)
+        return self.finish_step(
+            state, g_gauss, g_extra, logs, step, sched, generator, capacity,
+            add_stats=lambda gauss: self.geometry.accumulate_stats(
+                gauss, outs[-1]["radii"].float(), outs[-1]["visibility_filter"], vs_grad_norm))
+
+    # -- data parallel ---------------------------------------------------------
+    def set_mesh(self, mesh, axis: str = "data") -> None:
+        """Route training through the camera-sharded data-parallel step
+        over ``mesh``'s ``axis`` (the trainer calls it when the process
+        group has more than one rank, or ``trainer.devices`` asks for one).
+        A step whose camera batch the group's size does not divide shards
+        over gcd(batch, ranks) of them, the others stepping a copy of a
+        shard with zero weight (``make_dp_train_step``).  A system whose
+        ``train_step`` is not this base step (the zero123 family) runs
+        unsharded and identical on every rank, as the JAX package's ignore
+        the mesh."""
+        self.mesh = mesh
+        self._dp_axis = axis
+        self._dp_steps.clear()
+        if not self.shards_camera_batch:
+            print(f"[system] {type(self).__name__} steps unsharded: every rank runs the whole "
+                  f"camera batch", flush=True)
+
+    def _dp_step(self, state, batch, step, generator):
+        """This rank's shard through the cached dp step for its batch size."""
+        group = self.mesh.get_group(self._dp_axis)
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        bs = int(np.asarray(batch["c2w"]).shape[0])
+        use = math.gcd(bs, world)
+        key = ("dp", use, bs)
+        if key not in self._dp_steps:
+            if use != world:
+                # surface the idle ranks: bs=2 on 4 ranks silently runs 2
+                print(f"[system] camera batch {bs} not divisible by mesh size {world}: "
+                      f"stepping on a {use}-device sub-mesh ({world - use} idle)", flush=True)
+            self._dp_steps[key] = make_dp_train_step(self, group, bs, n_shards=use)
+        # the whole batch's render draws, in the one-process step's order:
+        # a view's draws do not depend on the rank that renders it (the JAX
+        # package folds the view index into its key)
+        batch = dict(batch, **self.renderer.batch_view_draws(generator, bs))
+        shard = shard_batch(batch, rank % use, use, bs)
+        return self._dp_steps[key](state, shard, step, generator)
 
     # -- eval ---------------------------------------------------------------
     @torch.no_grad()

@@ -71,6 +71,8 @@ class Zero123System(BaseGaussianSystem):
     # the JAX package's zero123 step (and so its 4D and SuGaR steps) never
     # runs the pair-capacity controller: the renderer keeps max_pairs
     adapts_pair_capacity = False
+    # its train_step is its own in the JAX package, which ignores the mesh
+    shards_camera_batch = False
 
     def _substep_mode(self, step: int) -> Tuple[bool, bool]:
         mode = self.cfg.freq.get("ref_or_zero123", "accumulate")

@@ -17,6 +17,16 @@ Drives the train / validate / test / predict / export lifecycle:
   * export: the exporter's PLY and mesh;
   * predict: the SuGaR system's textured-mesh bake (OBJ + MTL + PNG);
     the other systems have no predict surface and run the test renders.
+
+Multi-rank runs (one process per rank under ``torchrun``; ``launch.py``
+initialises the group): ``trainer.devices`` keeps the JAX trainer's
+meaning.  "auto" (the default) shards the camera batch over every rank when
+there is more than one; N requires N ranks, and N = 1 forces the
+data-parallel step on a one-rank group (initialised here when none exists,
+and destroyed by ``close``); 0 keeps the one-process step.  Every rank
+trains the same replicated state; rank 0 alone writes (metrics, PNGs,
+checkpoints, PLYs, exports) and renders the evaluation views, the others
+waiting at a barrier.  Every rank prints its logged losses.
 """
 
 from __future__ import annotations
@@ -28,8 +38,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .ops.native import KernelError
+from .parallel.mesh import initialize_distributed, make_mesh
 from .utils.ckpt import load_checkpoint, save_checkpoint
 from .utils.config import ExperimentConfig, dump_config
 from .utils.registry import find
@@ -61,7 +73,15 @@ class Trainer:
         self.ckpt_every = ckpt_cfg.get("every_n_train_steps", None)
         self.ckpt_keep_all = int(ckpt_cfg.get("save_top_k", 0) or 0) == -1
         self.save_dir = cfg.trial_dir or "outputs/debug"
-        os.makedirs(self.save_dir, exist_ok=True)
+        self._owns_group = False
+        self.mesh = self._build_mesh(cfg)
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.world = dist.get_world_size() if dist.is_initialized() else 1
+        if self.rank == 0:
+            os.makedirs(self.save_dir, exist_ok=True)
+        if self.mesh is not None and hasattr(self.system, "set_mesh"):
+            self.system.set_mesh(self.mesh)
+            self._say(f"[trainer] data-parallel over {self.mesh.size()} device(s): {self.mesh}")
         ft = cfg.trainer.get("fault_tolerance", {}) or {}
         self.ft_max_retries = int(ft.get("max_retries", 1))
         self.ft_retry_wait_s = float(ft.get("retry_wait_s", 10.0))
@@ -70,10 +90,50 @@ class Trainer:
         self.step = 0
         self.metrics_log = []
 
+    def _build_mesh(self, cfg: ExperimentConfig):
+        """The camera-sharded training mesh of ``trainer.devices`` (module
+        docstring), or None for the one-process step."""
+        devices = cfg.trainer.get("devices", "auto")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if devices in ("auto", None, ""):
+            if world <= 1:
+                return None  # the one-process step, unchanged
+        else:
+            n = int(devices)
+            if n <= 0:
+                return None
+            if n != world:
+                raise ValueError(f"trainer.devices={n} but the process group has {world} "
+                                 f"rank(s): start {n} with torchrun")
+            if not dist.is_initialized():
+                backend = "nccl" if self.device.type == "cuda" else "gloo"
+                self._owns_group = initialize_distributed(backend, world_size=1, rank=0,
+                                                          force=True)
+        return make_mesh((world,), ("data",), device_type=self.device.type)
+
+    def close(self) -> None:
+        """Destroy the one-rank group ``trainer.devices=1`` initialised."""
+        if self._owns_group:
+            dist.destroy_process_group()
+            self._owns_group = False
+
+    def _say(self, msg: str) -> None:
+        if self.rank == 0:
+            print(msg, flush=True)
+
+    def _rank0(self, fn):
+        """``fn()`` on rank 0 alone, the other ranks waiting at a barrier:
+        its result on rank 0, None on the others."""
+        result = fn() if self.rank == 0 else None
+        if self.world > 1:
+            dist.barrier()
+        return result
+
     def _log_metrics(self, row: Dict[str, Any]) -> None:
         self.metrics_log.append(row)
-        with open(os.path.join(self.save_dir, "metrics.jsonl"), "a") as f:
-            f.write(json.dumps(row) + "\n")
+        if self.rank == 0:
+            with open(os.path.join(self.save_dir, "metrics.jsonl"), "a") as f:
+                f.write(json.dumps(row) + "\n")
 
     def load_state(self, resume: Optional[str]) -> None:
         """The state of a port checkpoint (and its step), or a fresh init."""
@@ -83,10 +143,11 @@ class Trainer:
             self.state = self.system.init_state(self.cfg.seed)
 
     def fit(self, resume: Optional[str] = None):
-        dump_config(self.cfg, os.path.join(self.save_dir, "parsed.yaml"))
+        if self.rank == 0:
+            dump_config(self.cfg, os.path.join(self.save_dir, "parsed.yaml"))
         if resume:
             self.load_state(resume)
-            print(f"[trainer] resumed from {resume} at step {self.step}", flush=True)
+            self._say(f"[trainer] resumed from {resume} at step {self.step}")
         if self.state is None:
             self.state = self.system.init_state(self.cfg.seed)
         generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
@@ -103,7 +164,8 @@ class Trainer:
             except Exception as e:  # a device fault, an out-of-memory
                 retries += 1
                 self._crash_checkpoint(e)
-                if retries > self.ft_max_retries:
+                # one rank's retry would put its collectives out of step
+                if retries > self.ft_max_retries or self.world > 1:
                     raise
                 print(f"[trainer] retry {retries}/{self.ft_max_retries} in "
                       f"{self.ft_retry_wait_s:.0f}s", flush=True)
@@ -132,7 +194,8 @@ class Trainer:
                 logs_host["step_s"] = round(time.perf_counter() - t_step, 6)
                 self._log_metrics(logs_host)
                 msg = " ".join(f"{k}={v:.4g}" for k, v in sorted(logs_host.items()))
-                print(f"[trainer] {msg}", flush=True)
+                who = f" rank {self.rank}/{self.world}" if self.world > 1 else ""
+                print(f"[trainer{who}] {msg}", flush=True)
 
             if self.val_interval and self.step % int(self.val_interval) == 0:
                 self.validate()
@@ -149,6 +212,8 @@ class Trainer:
         Adam moments are updated in place, so a step that failed after its
         optimiser update leaves them, and its retry starts from, one
         update ahead."""
+        if self.rank != 0:
+            return
         path = os.path.join(self.save_dir, "ckpts", "crash.ckpt.npz")
         name = type(error).__name__
         try:
@@ -160,12 +225,18 @@ class Trainer:
                   f"also failed ({e2})", flush=True)
 
     def validate(self):
+        self._rank0(self._validate)
+
+    def _validate(self):
         views = self.data.val_views()
         out_dir = os.path.join(self.save_dir, "save")
         self.system.save_validation_images(out_dir, self.state, views, self.step)
         print(f"[trainer] validation images -> {out_dir}", flush=True)
 
     def test(self):
+        self._rank0(self._test)
+
+    def _test(self):
         views = self.data.test_views()
         out_dir = os.path.join(self.save_dir, "save", f"it{self.step}-test")
         os.makedirs(out_dir, exist_ok=True)
@@ -185,10 +256,13 @@ class Trainer:
         under ``save/it<step>-predict/``) over the data's predict views, or
         its test views where it has none; a system without a predict
         surface runs the test renders.  The bake's stage times and counters
-        are kept in ``predict_stats``."""
+        are kept in ``predict_stats``.  Rank 0 alone bakes."""
+        return self._rank0(self._predict)
+
+    def _predict(self):
         if not hasattr(self.system, "predict_textured_mesh"):
             print("[trainer] system has no predict path; running test()", flush=True)
-            return self.test()
+            return self._test()
         views = (self.data.predict_views() if hasattr(self.data, "predict_views")
                  else self.data.test_views())
         out_dir = os.path.join(self.save_dir, "save", f"it{self.step}-predict")
@@ -203,6 +277,9 @@ class Trainer:
         return result
 
     def export(self):
+        return self._rank0(self._export)
+
+    def _export(self):
         exporter = find(self.system.cfg.exporter_type or "gaussian-mesh-exporter")(
             self.system.cfg.exporter, geometry=self.system.geometry
         )
@@ -213,6 +290,9 @@ class Trainer:
         return outputs
 
     def save_ckpt(self, name: str):
+        self._rank0(lambda: self._save_ckpt(name))
+
+    def _save_ckpt(self, name: str):
         path = os.path.join(self.save_dir, "ckpts", name)
         save_checkpoint(path, self.state, self.step)
         print(f"[trainer] checkpoint -> {path}", flush=True)

@@ -123,19 +123,25 @@ def train_view_scene(run_dir: str, device="cuda"):
                     tile_size=trainer.system.renderer.cfg.tile_size)
 
 
-def view_inputs(scene, seed: int, device="cuda", max_pairs: int = 2**21, cameras=None):
+def view_inputs(scene, seed: int, device="cuda", max_pairs: int = 2**21, cameras=None,
+                tile_band=None):
     """K1-K4's inputs for one view, as ``rasterize`` makes them: the pair
     plan, K1's and K2's pair rows (rgb, depth and the scene's ``extra``
     features where it has them), ranges and cotangent, and K3's rows,
     offsets and counts from K2's pair gradients.  With ``cameras`` (B > 1
     of one size) the inputs of ``rasterize_batched``'s single pass: the B
     views' Gaussians on the grid of the views stacked as tile rows,
-    ``view_grid_y`` the tile rows of a view (0 for one view)."""
+    ``view_grid_y`` the tile rows of a view (0 for one view).  With
+    ``tile_band`` (row0, rows) the inputs of one band of the view, as
+    ``rasterize(tile_band=...)`` makes them."""
     from threestudio_3dgs_tpu_torch.ops.rasterizer import binning, blend, preprocess
+    from threestudio_3dgs_tpu_torch.ops.rasterizer.api import band_projection
 
     cams = list(cameras) if cameras else [scene["cam"]]
     b, ts = len(cams), scene["tile_size"]
     gx, gy = (cams[0].width + ts - 1) // ts, (cams[0].height + ts - 1) // ts
+    if tile_band is not None:
+        gy = tile_band[1]
     vgy = gy if b > 1 else 0
     # the stacked grid's argument only where there is one: a tree from
     # before the batched render is timed through the same calls
@@ -145,6 +151,8 @@ def view_inputs(scene, seed: int, device="cuda", max_pairs: int = 2**21, cameras
         for v, cam in enumerate(cams):
             proj = preprocess.project_gaussians(scene["means"], scene["scales"], scene["quats"],
                                                 cam, ts, alive=scene["alive"])
+            if tile_band is not None:
+                proj = band_projection(proj, tile_band[0], tile_band[1], ts)
             shift = torch.tensor([0, v * gy], dtype=proj.tiles_min.dtype, device=device)
             projs.append(proj._replace(tiles_min=proj.tiles_min + shift,
                                        tiles_max=proj.tiles_max + shift))
