@@ -90,6 +90,14 @@ Phases, each of which fails the run with a non-zero exit:
      there twice), and the two-rank tile renderer's gathered view equals
      the full render (the tolerances of (b)); the gradient mean timed at
      two ranks;
+  6d. ``profile``: ``python -m threestudio_3dgs_tpu_torch.launch --train
+     --profile`` of ``gaussian_splatting.yaml`` as written (512^2, B = 4,
+     fake SDS, 5 steps, 2 test renders) in a process of its own: fails
+     unless it exits 0, writes a ``torch.profiler`` trace under
+     ``<trial_dir>/profile``, the trace records at most the schedule's 3
+     profiler steps, and its CUDA kernel events name K1-K4 by their
+     ``csrc/`` symbols; prints the trace's device-busy share and device ms
+     a step by kernel family beside the card's name and power limit;
   7. Stable Diffusion guidance: write a seeded random-init checkpoint
      directory with the published stabilityai/stable-diffusion-2-1-base
      UNet, VAE and text encoder architectures (diffusers layout, f32 .bin)
@@ -1461,6 +1469,54 @@ def train_dp(torch, native):
     return r0["stacked"], band_launches, band_errs, band_timing, shard_errs, shard_timing
 
 
+def profile_run(card):
+    """6d: ``launch --train --profile`` in a subprocess (its own counters
+    and profiler, the kernels already built); the trace's checks and its
+    breakdown, with ``card`` (nvidia-smi's name and power limit)."""
+    import glob
+    import shutil
+
+    from threestudio_3dgs_tpu_torch.utils.profiling import (
+        RASTER_SYMBOLS, TRACE_ACTIVE, TRACE_STEPS, read_trace, summarize)
+
+    run_dir = os.path.join(RUN_DIR, "profile")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = [sys.executable, "-m", "threestudio_3dgs_tpu_torch.launch", "--config", PORT_CONFIG,
+            "--train", "--profile", f"trainer.max_steps={TRACE_STEPS}",
+            "trainer.val_check_interval=0", "system.guidance_type=fake-sds-guidance",
+            "data.n_test_views=2", f"exp_root_dir={run_dir}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"profile: launch --train --profile exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    logdirs = glob.glob(os.path.join(run_dir, "*", "*", "profile"))  # <trial_dir>/profile
+    if len(logdirs) != 1:
+        fail(f"profile: want one <trial_dir>/profile under {run_dir}, found {logdirs}")
+    trace = read_trace(logdirs[0])
+    steps = trace["steps"]
+    if not 0 < len(steps) <= TRACE_ACTIVE:
+        fail(f"profile: the trace records profiler steps {steps}, want 1 to {TRACE_ACTIVE}")
+    events = {k: sum(1 for e in trace["events"] if e.get("cat") == "kernel"
+                     and sym in str(e.get("name", ""))) for k, sym in RASTER_SYMBOLS.items()}
+    missing = [k for k, n in events.items() if n == 0]
+    if missing:
+        fail(f"profile: the trace has no kernel event of {missing} "
+             f"(symbols {[RASTER_SYMBOLS[k] for k in missing]}); events by kernel {events}")
+    summary = summarize(trace["kernels"], trace["wall_s"], len(steps))
+    log(f"profile: launch --train --profile, {TRACE_STEPS} steps of gaussian_splatting.yaml "
+        f"(fake SDS, 4 x 512^2) + 2 test renders: exit 0 in {wall:.1f} s wall incl. start-up; "
+        f"trace {os.path.relpath(trace['path'], ROOT)} ({os.path.getsize(trace['path'])} bytes, "
+        f"{len(trace['events'])} events), profiler steps {steps}; K1-K4 kernel events {events}")
+    log(f"profile on {card}: {summary['wall_ms_per_iter']:.2f} ms a traced step (host clock of "
+        f"the ProfilerStep spans), device {summary['device_ms_per_iter']:.3f} ms, busy "
+        f"{100 * summary['device_busy_share']:.1f}%; device ms a step by family "
+        + json.dumps({k: round(v, 4) for k, v in summary["families_ms_per_iter"].items()})
+        + "; top kernels " + json.dumps([(k, round(v, 4))
+                                         for k, v in summary["top_kernels_ms_per_iter"][:8]]))
+
+
 def write_sd_checkpoint(torch):
     """The SD 2.1-base UNet and VAE, and its text encoder with a synthetic
     tokenizer (the byte symbols, the merges learned from a few lines of
@@ -2750,7 +2806,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     global SM_MAX_HZ
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -2807,6 +2864,7 @@ def main():
     batched_launches, batched_errs, batched_timing = train_batched(torch, native)
     (dp_launches, band_launches, band_errs, band_timing, shard_errs,
      shard_timing) = train_dp(torch, native)
+    profile_run(card)
 
     write_sd_checkpoint(torch)
     k5_errs = check_flash(torch)

@@ -209,7 +209,7 @@ def test_view_dependent_embeddings_match_jax():
                       .view_index(elev, azim))
     from threestudio_3dgs_tpu_torch.guidance.base import PromptProcessorConfig, text_embedding
 
-    pu = PromptUtils("a hamburger", cfg=PromptProcessorConfig(**cfg))
+    pu = PromptUtils("a hamburger", cfg=PromptProcessorConfig(**cfg), device="cpu")
     np.testing.assert_array_equal(pu.view_index(elev, azim), want)
     assert set(want.tolist()) == {0, 1, 2, 3}
     embs = pu.get_text_embeddings(elev, azim)

@@ -139,7 +139,8 @@ def test_prompt_utils_match_jax(tokenizer_dirs, tmp_path):
     four view variants' embeddings within 1e-5, and the view pick."""
     root = write_clip_dir(tmp_path, tokenizer_dirs["eos_pad"], "gelu", True)
     want = jbase.PromptUtils("a hamburger", model_dir=root)
-    got = PromptProcessor({"prompt": "a hamburger", "pretrained_model_name_or_path": root})()
+    got = PromptProcessor({"prompt": "a hamburger", "pretrained_model_name_or_path": root},
+                          device="cpu")()
     assert got.text_embedding.shape == (77, 32) and got.view_embeddings.shape == (4, 77, 32)
     np.testing.assert_allclose(got.text_embedding, np.asarray(want.text_embedding), atol=1e-5)
     np.testing.assert_allclose(got.view_embeddings, np.asarray(want.view_embeddings), atol=1e-5)
@@ -153,7 +154,7 @@ def test_prompt_utils_fall_back_without_clip_dirs(tmp_path):
     two): the CRC32-seeded vectors, as before."""
     (tmp_path / "tokenizer").mkdir()
     for model_dir in ("", "no/such/dir", str(tmp_path)):
-        pu = PromptUtils("a hamburger", model_dir=model_dir)
+        pu = PromptUtils("a hamburger", model_dir=model_dir, device="cpu")
         np.testing.assert_array_equal(pu.text_embedding, text_embedding("a hamburger"))
 
 
@@ -164,7 +165,7 @@ def test_broken_clip_dir_raises(tokenizer_dirs, tmp_path):
     os.remove(os.path.join(root, "text_encoder", "model.safetensors"))
     assert jbase._clip_encode_local(root, "a hamburger") is None
     with pytest.raises(FileNotFoundError, match="model.safetensors"):
-        PromptUtils("a hamburger", model_dir=root)
+        PromptUtils("a hamburger", model_dir=root, device="cpu")
 
 
 def test_read_safetensors_matches_package(tmp_path):

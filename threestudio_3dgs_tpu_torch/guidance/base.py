@@ -64,7 +64,7 @@ class PromptUtils:
     tokenizer, else the CRC32-seeded vectors (D = 1024)."""
 
     def __init__(self, prompt: str, negative_prompt: str = "", model_dir: str = "",
-                 cfg=None, device="cpu"):
+                 cfg=None, device="cuda"):
         self.prompt = prompt
         self.negative_prompt = negative_prompt
         self.cfg = cfg or PromptProcessorConfig(prompt=prompt)
@@ -101,7 +101,7 @@ class PromptUtils:
 class PromptProcessor:
     Config = PromptProcessorConfig
 
-    def __init__(self, cfg=None, device="cpu", **kwargs):
+    def __init__(self, cfg=None, device="cuda", **kwargs):
         if cfg is None:
             cfg = PromptProcessorConfig(**kwargs)
         elif isinstance(cfg, dict):

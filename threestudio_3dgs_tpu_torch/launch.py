@@ -5,7 +5,11 @@
 Runs on the CUDA card unless ``--device cpu`` is given; without a card and
 without that flag it raises rather than carry on on the CPU.  ``--train``
 runs ``Trainer.fit`` (from ``--resume``'s checkpoint when given) and then
-the test renders.  ``--validate`` and ``--test`` render the state of
+the test renders; with ``--profile`` as well, the training steps run
+under ``utils/profiling.py`` ``device_trace``, a ``torch.profiler`` trace
+of the first steps written to ``<trial_dir>/profile`` (rank 0 alone
+traces under ``torchrun``; without ``--train`` the flag does nothing).
+``--validate`` and ``--test`` render the state of
 ``--resume``'s checkpoint, or a fresh init without one; ``--predict`` and
 ``--export`` follow on the trained or loaded state.
 
@@ -49,6 +53,10 @@ def main(argv=None):
     parser.add_argument("--resume", default=None, help="a port checkpoint (.ckpt.npz)")
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     parser.add_argument("--gpu", default=None, help="ignored (compat)")
+    parser.add_argument(
+        "--profile", action="store_true",
+        help="capture a torch.profiler device trace of the first training steps",
+    )
     parser.add_argument("overrides", nargs="*", help="dotlist key=value overrides")
     args = parser.parse_args(argv)
 
@@ -83,7 +91,13 @@ def _run(args, cfg, device):
         cfg.set_dirs()
     trainer = Trainer(cfg, device=device)
     if args.train:
-        trainer.fit(resume=cfg.resume)
+        if args.profile and trainer.rank == 0:
+            from .utils.profiling import device_trace
+
+            with device_trace(os.path.join(cfg.trial_dir, "profile"), device) as prof:
+                trainer.fit(resume=cfg.resume, on_step=prof.step)
+        else:
+            trainer.fit(resume=cfg.resume)
         trainer.test()
     elif args.validate or args.test or args.predict or args.export:
         trainer.load_state(cfg.resume)

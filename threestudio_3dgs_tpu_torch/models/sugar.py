@@ -366,6 +366,12 @@ class SuGaRModel:
             state, params=new_params, adam=init_adam(new_params.as_dict()),
             faces=state.faces[torch.as_tensor(mask, device=dev)])
 
+    def save_mesh_obj(self, state: SuGaRState, path: str) -> None:
+        """The bound mesh (its vertices as trained, its faces) as an OBJ."""
+        from .mesh_extract import save_obj
+
+        save_obj(path, state.params.points.detach().cpu().numpy(), state.faces.cpu().numpy())
+
     @torch.no_grad()
     def save_ply(self, state: SuGaRState, path: str) -> None:
         """Every bound Gaussian as a 3DGS PLY (log scales, the thickness

@@ -32,3 +32,34 @@ def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
          cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
         dim=-1,
     )
+
+
+def unstrip_symmetric(cov6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) upper triangle -> (..., 3, 3) symmetric."""
+    a, b, c, d, e, f = cov6.unbind(-1)
+    return torch.stack(
+        [torch.stack([a, b, c], dim=-1), torch.stack([b, d, e], dim=-1),
+         torch.stack([c, e, f], dim=-1)],
+        dim=-2,
+    )
+
+
+def gaussian_3d_coeff(xyzs: torch.Tensor, covs6: torch.Tensor) -> torch.Tensor:
+    """Unnormalised Gaussian density exp(-0.5 d^T Sigma^-1 d) at offsets
+    ``xyzs`` (..., 3) for stripped covariances ``covs6`` (..., 6); a
+    positive exponent (a covariance that is not positive definite) gives
+    exp(-1e10) = 0."""
+    x, y, z = xyzs.unbind(-1)
+    a, b, c, d, e, f = covs6.unbind(-1)
+    det = a * d * f + 2 * e * c * b - e * e * a - c * c * d - b * b * f
+    inv_det = 1.0 / (det + 1e-24)
+    inv_a = (d * f - e * e) * inv_det
+    inv_b = (e * c - b * f) * inv_det
+    inv_c = (e * b - c * d) * inv_det
+    inv_d = (a * f - c * c) * inv_det
+    inv_e = (b * c - e * a) * inv_det
+    inv_f = (a * d - b * b) * inv_det
+    power = (-0.5 * (x * x * inv_a + y * y * inv_d + z * z * inv_f)
+             - x * y * inv_b - x * z * inv_c - y * z * inv_e)
+    power = torch.where(power > 0.0, torch.full_like(power, -1e10), power)
+    return torch.exp(power)

@@ -16,7 +16,11 @@ Drives the train / validate / test / predict / export lifecycle:
     exists), and the point-cloud PLY after the test renders;
   * export: the exporter's PLY and mesh;
   * predict: the SuGaR system's textured-mesh bake (OBJ + MTL + PNG);
-    the other systems have no predict surface and run the test renders.
+    the other systems have no predict surface and run the test renders;
+  * wandb (``loggers.wandb``, at the top level or under ``system:``): with
+    ``enable: true`` each metrics row also goes to a wandb run, finished at
+    the end of ``fit``; a wandb that does not import or initialise is
+    reported and the run goes on without it (a logger changes no result).
 
 Multi-rank runs (one process per rank under ``torchrun``; ``launch.py``
 initialises the group): ``trainer.devices`` keeps the JAX trainer's
@@ -26,7 +30,8 @@ data-parallel step on a one-rank group (initialised here when none exists,
 and destroyed by ``close``); 0 keeps the one-process step.  Every rank
 trains the same replicated state; rank 0 alone writes (metrics, PNGs,
 checkpoints, PLYs, exports) and renders the evaluation views, the others
-waiting at a barrier.  Every rank prints its logged losses.
+waiting at a barrier.  Every rank prints its logged losses; rank 0 alone
+logs to wandb.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -89,6 +94,7 @@ class Trainer:
         self.state = None
         self.step = 0
         self.metrics_log = []
+        self.wandb_run = self._init_wandb(cfg) if self.rank == 0 else None
 
     def _build_mesh(self, cfg: ExperimentConfig):
         """The camera-sharded training mesh of ``trainer.devices`` (module
@@ -129,11 +135,33 @@ class Trainer:
             dist.barrier()
         return result
 
+    def _init_wandb(self, cfg: ExperimentConfig):
+        """The wandb run of ``loggers.wandb`` when it is enabled, else None
+        (and wandb is not imported)."""
+        loggers = cfg.loggers or (cfg.system or {}).get("loggers", {}) or {}
+        wb_cfg = loggers.get("wandb", {})
+        if not wb_cfg.get("enable", False):
+            return None
+        try:
+            import wandb
+
+            return wandb.init(
+                project=wb_cfg.get("project", "threestudio-3dgs-tpu"),
+                name=wb_cfg.get("name", cfg.trial_name) or cfg.trial_name,
+                config=dict(cfg.__dict__),
+                dir=self.save_dir,
+            )
+        except Exception as e:  # not installed, or no login or network
+            print(f"[trainer] wandb disabled ({e})", flush=True)
+            return None
+
     def _log_metrics(self, row: Dict[str, Any]) -> None:
         self.metrics_log.append(row)
         if self.rank == 0:
             with open(os.path.join(self.save_dir, "metrics.jsonl"), "a") as f:
                 f.write(json.dumps(row) + "\n")
+        if self.wandb_run is not None:
+            self.wandb_run.log(row, step=row["step"])
 
     def load_state(self, resume: Optional[str]) -> None:
         """The state of a port checkpoint (and its step), or a fresh init."""
@@ -142,7 +170,9 @@ class Trainer:
         else:
             self.state = self.system.init_state(self.cfg.seed)
 
-    def fit(self, resume: Optional[str] = None):
+    def fit(self, resume: Optional[str] = None, on_step: Optional[Callable[[], None]] = None):
+        """Train to ``trainer.max_steps``; ``on_step()`` is called after each
+        step (the launcher's ``--profile`` steps its profiler there)."""
         if self.rank == 0:
             dump_config(self.cfg, os.path.join(self.save_dir, "parsed.yaml"))
         if resume:
@@ -203,7 +233,12 @@ class Trainer:
                 if self.ckpt_keep_all:
                     self.save_ckpt(f"step{self.step}.ckpt.npz")
                 self.save_ckpt("last.ckpt.npz")
+            if on_step is not None:
+                on_step()
         self.save_ckpt("last.ckpt.npz")
+        if self.wandb_run is not None:
+            self.wandb_run.finish()
+            self.wandb_run = None
         return self.state
 
     def _crash_checkpoint(self, error: Exception) -> None:

@@ -33,22 +33,29 @@ overlaps), the device time per kernel family and the top kernels.  Needs
 a CUDA device.
 
 It also holds the scenes, kernel inputs and card-against-CPU checks that
-``chip_smoke.py`` and ``tests/test_torch_gpu.py`` share.
+``chip_smoke.py`` and ``tests/test_torch_gpu.py`` share, and the
+counterparts of the JAX package's ``utils/profiling.py``:
+``device_trace`` (the launcher's ``--profile``: a ``torch.profiler``
+trace of the first training steps, which ``read_trace`` reads back),
+``time_fn`` and ``StepTimer``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import glob
 import json
 import os
 import re
 import time
-from typing import Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
+from torch.utils._pytree import tree_leaves
 
 # kernel-name patterns -> family, first match wins
 FAMILIES = [
@@ -79,13 +86,19 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def summarize(prof, wall_s: float, iters: int) -> Dict[str, object]:
-    """Device time per kernel family and the top kernels of one window."""
+def device_kernels(prof) -> Dict[str, float]:
+    """Device microseconds by kernel name of a profiler's window."""
     kernels: Dict[str, float] = {}
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us > 0 and str(getattr(evt, "device_type", "")).endswith("CUDA"):
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us
+    return kernels
+
+
+def summarize(kernels: Dict[str, float], wall_s: float, iters: int) -> Dict[str, object]:
+    """Device time per kernel family and the top kernels of one window, from
+    its device microseconds by kernel name."""
     families: Dict[str, float] = {}
     for name, us in kernels.items():
         fam = next((f for f, pat in FAMILIES if re.search(pat, name)), "other")
@@ -126,7 +139,113 @@ def profile_window(fn: Callable[[], None], iters: int, trace_path: str = "") -> 
         wall = time.perf_counter() - t0
     if trace_path:
         prof.export_chrome_trace(trace_path)
-    return {"wall_ms_per_iter_unprofiled": unprofiled, **summarize(prof, wall, iters)}
+    return {"wall_ms_per_iter_unprofiled": unprofiled,
+            **summarize(device_kernels(prof), wall, iters)}
+
+
+# the window of device_trace, in training steps: the first step skipped (the
+# kernels' build, the allocator's warm-up), one step of warm-up, then
+# TRACE_ACTIVE recorded; the profiler dropped the records of long windows on
+# the card's machine, so the rest of the run is not traced
+TRACE_WAIT, TRACE_WARMUP, TRACE_ACTIVE = 1, 1, 3
+TRACE_STEPS = TRACE_WAIT + TRACE_WARMUP + TRACE_ACTIVE  # the steps that complete the window
+# the event categories of device work in a chrome trace
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str, device="cuda"):
+    """A ``torch.profiler`` trace of the first training steps, written under
+    ``logdir`` by TensorBoard's handler (``*.pt.trace.json``): CPU activity,
+    and CUDA activity when ``device`` is a CUDA device.  Yields the
+    profiler, whose ``step()`` the caller calls once a training step.  The
+    trace is written when the window's last step ends, or when the profiler
+    stops inside the window (in a ``finally``: an exception in the block
+    still propagates); a block that ends before the window records
+    nothing."""
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   schedule=schedule(wait=TRACE_WAIT, warmup=TRACE_WARMUP, active=TRACE_ACTIVE,
+                                     repeat=1),
+                   on_trace_ready=tensorboard_trace_handler(logdir))
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+
+
+def read_trace(logdir: str) -> Dict[str, Any]:
+    """The newest trace ``device_trace`` wrote under ``logdir``: its path,
+    its events, its recorded profiler steps (the ``ProfilerStep#N``
+    annotations), their summed wall seconds and the device microseconds by
+    kernel name."""
+    paths = sorted(glob.glob(os.path.join(logdir, "*.pt.trace.json")), key=os.path.getmtime)
+    if not paths:
+        raise FileNotFoundError(f"no *.pt.trace.json under {logdir}")
+    with open(paths[-1]) as fh:
+        events = json.load(fh)["traceEvents"]
+    steps = [e for e in events if str(e.get("name", "")).startswith("ProfilerStep#")]
+    kernels: Dict[str, float] = {}
+    for e in events:
+        if e.get("cat") in DEVICE_CATEGORIES:
+            kernels[e["name"]] = kernels.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    return {"path": paths[-1], "events": events,
+            "steps": sorted({e["name"] for e in steps}),
+            "wall_s": sum(float(e.get("dur", 0.0)) for e in steps) / 1e6,
+            "kernels": kernels}
+
+
+def _wait(out) -> None:
+    """Wait for the device work behind the tensors of ``out`` (the CPU's
+    is done when a call returns)."""
+    for device in {t.device for t in tree_leaves(out)
+                   if isinstance(t, torch.Tensor) and t.device.type == "cuda"}:
+        torch.cuda.synchronize(device)
+
+
+def time_fn(fn: Callable, *args, iters: int = 8, warmup: int = 1,
+            vary: Optional[Callable[[int], tuple]] = None) -> Dict[str, float]:
+    """Wall time of ``fn(*args)`` (of ``fn(*vary(i))`` with ``vary``): the
+    first call alone (``compile_s``: the kernels' build, the allocator's
+    warm-up), ``warmup - 1`` more, then ``iters`` calls back to back with
+    one synchronise of the outputs' device after them (``ms`` a call)."""
+    t0 = time.perf_counter()
+    _wait(fn(*(vary(0) if vary else args)))
+    compile_s = time.perf_counter() - t0
+    for _ in range(max(warmup - 1, 0)):
+        _wait(fn(*(vary(0) if vary else args)))
+    t0 = time.perf_counter()
+    outs = [fn(*(vary(i + 1) if vary else args)) for i in range(iters)]
+    _wait(outs)
+    ms = (time.perf_counter() - t0) / iters * 1000.0
+    return {"ms": ms, "compile_s": compile_s}
+
+
+class StepTimer:
+    """Per-step wall timing of a training loop, dumped as jsonl."""
+
+    def __init__(self, path: Optional[str] = None):
+        self.path = path
+        self.rows: List[Dict[str, Any]] = []
+        self._t = time.perf_counter()
+
+    def lap(self, step: int, **extra) -> Dict[str, Any]:
+        now = time.perf_counter()
+        row = {"step": step, "ms": (now - self._t) * 1000.0, **extra}
+        self._t = now
+        self.rows.append(row)
+        return row
+
+    def dump(self) -> None:
+        if self.path:
+            os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+            with open(self.path, "w") as f:
+                for row in self.rows:
+                    f.write(json.dumps(row) + "\n")
 
 
 def lookat_c2w(eye) -> np.ndarray:
@@ -183,8 +302,11 @@ def render_step(scene: Dict[str, object]) -> Callable[[], tuple]:
     return step
 
 
-# the render's kernels (K1-K4), by their names in native.LAUNCHES
+# the render's kernels (K1-K4), by their names in native.LAUNCHES, and each
+# one's symbol in csrc/ (what a device trace names it by)
 RASTER_KERNELS = ("blend_forward", "blend_backward", "segsum_monotone", "expand_bin")
+RASTER_SYMBOLS = dict(zip(RASTER_KERNELS, ("blend_fwd_kernel", "blend_bwd_kernel",
+                                           "segsum_kernel", "expand_kernel")))
 
 
 def k5_inputs(bh: int, n: int, dtype: torch.dtype, seed: int, device="cuda",
