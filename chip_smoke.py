@@ -95,9 +95,12 @@ Phases, each of which fails the run with a non-zero exit:
      fake SDS, 5 steps, 2 test renders) in a process of its own: fails
      unless it exits 0, writes a ``torch.profiler`` trace under
      ``<trial_dir>/profile``, the trace records at most the schedule's 3
-     profiler steps, and its CUDA kernel events name K1-K4 by their
-     ``csrc/`` symbols; prints the trace's device-busy share and device ms
-     a step by kernel family beside the card's name and power limit;
+     profiler steps, its CUDA kernel events name K1-K4 by their ``csrc/``
+     symbols and its recorded steps hold the spans ``fit/train_step``,
+     ``system/render``, ``system/guidance`` and ``system/backward``;
+     prints the trace's device-busy share and, by span path
+     (``benchmark/spans.py``), device ms, host self ms and idle ms a step
+     beside the card's name and power limit;
   7. Stable Diffusion guidance: write a seeded random-init checkpoint
      directory with the published stabilityai/stable-diffusion-2-1-base
      UNet, VAE and text encoder architectures (diffusers layout, f32 .bin)
@@ -1469,6 +1472,10 @@ def train_dp(torch, native):
     return r0["stacked"], band_launches, band_errs, band_timing, shard_errs, shard_timing
 
 
+# the spans the --profile trace of the step must hold
+PROFILE_SPANS = ("fit/train_step", "system/render", "system/guidance", "system/backward")
+
+
 def profile_run(card):
     """6d: ``launch --train --profile`` in a subprocess (its own counters
     and profiler, the kernels already built); the trace's checks and its
@@ -1476,8 +1483,10 @@ def profile_run(card):
     import glob
     import shutil
 
+    from benchmark import spans
     from threestudio_3dgs_tpu_torch.utils.profiling import (
-        RASTER_SYMBOLS, TRACE_ACTIVE, TRACE_STEPS, read_trace, summarize)
+        RASTER_SYMBOLS, TRACE_ACTIVE, TRACE_STEPS, read_trace)
+    from threestudio_3dgs_tpu_torch.utils.tracing import SPANS
 
     run_dir = os.path.join(RUN_DIR, "profile")
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -1504,17 +1513,21 @@ def profile_run(card):
     if missing:
         fail(f"profile: the trace has no kernel event of {missing} "
              f"(symbols {[RASTER_SYMBOLS[k] for k in missing]}); events by kernel {events}")
-    summary = summarize(trace["kernels"], trace["wall_s"], len(steps))
+    reduced = spans.reduce(trace["events"], SPANS)
+    names = {n for path in (reduced or {}).get("count", {}) for n in path.split(spans.SEP)}
+    missing = [n for n in PROFILE_SPANS if n not in names]
+    if missing:
+        fail(f"profile: the trace's recorded steps hold no span {missing}; spans {sorted(names)}")
     log(f"profile: launch --train --profile, {TRACE_STEPS} steps of gaussian_splatting.yaml "
         f"(fake SDS, 4 x 512^2) + 2 test renders: exit 0 in {wall:.1f} s wall incl. start-up; "
         f"trace {os.path.relpath(trace['path'], ROOT)} ({os.path.getsize(trace['path'])} bytes, "
         f"{len(trace['events'])} events), profiler steps {steps}; K1-K4 kernel events {events}")
-    log(f"profile on {card}: {summary['wall_ms_per_iter']:.2f} ms a traced step (host clock of "
-        f"the ProfilerStep spans), device {summary['device_ms_per_iter']:.3f} ms, busy "
-        f"{100 * summary['device_busy_share']:.1f}%; device ms a step by family "
-        + json.dumps({k: round(v, 4) for k, v in summary["families_ms_per_iter"].items()})
-        + "; top kernels " + json.dumps([(k, round(v, 4))
-                                         for k, v in summary["top_kernels_ms_per_iter"][:8]]))
+    n = reduced["steps"]
+    log(f"profile on {card}: {reduced['wall_s'] / n * 1e3:.2f} ms a traced step (host clock of "
+        f"the ProfilerStep spans), device {reduced['busy_s'] / n * 1e3:.3f} ms busy "
+        f"({100 * reduced['busy_s'] / reduced['wall_s']:.1f}%); by span, ms a step: path, "
+        "device, host self, idle, count " + json.dumps(
+            [[p] + [round(v, 4) for v in rest] for p, *rest in spans.table(reduced)]))
 
 
 def write_sd_checkpoint(torch):

@@ -16,6 +16,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from benchmark import spans
+
 import test_torch_train  # noqa: F401  (its import shares the CPU's cores: share_cpu_threads)
 from test_torch_eval import _cli
 from test_torch_train import JAX_CONFIG, JAX_ONLY, OVERRIDES
@@ -25,7 +27,6 @@ from threestudio_3dgs_tpu.ops import camera as jcam
 from threestudio_3dgs_tpu.ops import gaussian_math as jgm
 from threestudio_3dgs_tpu.trainer import Trainer as JaxTrainer
 from threestudio_3dgs_tpu.utils import loss as jloss
-from threestudio_3dgs_tpu.utils import profiling as jprof
 from threestudio_3dgs_tpu.utils.config import load_config as jax_load_config
 
 from threestudio_3dgs_tpu_torch import launch
@@ -36,6 +37,7 @@ from threestudio_3dgs_tpu_torch.ops import gaussian_math as pgm
 from threestudio_3dgs_tpu_torch.ops.mesh import icosphere
 from threestudio_3dgs_tpu_torch.utils import loss as ploss
 from threestudio_3dgs_tpu_torch.utils import profiling as pprof
+from threestudio_3dgs_tpu_torch.utils import tracing
 
 # the host clock's keys of a metrics row; every other key is compared
 CLOCK_KEYS = ("wall_s", "step_s")
@@ -77,6 +79,19 @@ def test_profile_writes_a_bounded_trace(runs):
     assert trace["kernels"] == {}
 
 
+def test_profile_trace_holds_the_spans(runs):
+    """The recorded steps of a ``--profile`` trace hold the step's spans,
+    which ``benchmark/spans.py`` reduces by path."""
+    _, profiled = runs
+    trace = pprof.read_trace(os.path.join(profiled.cfg.trial_dir, "profile"))
+    reduced = spans.reduce(trace["events"], tracing.SPANS)
+    assert reduced["steps"] == pprof.TRACE_ACTIVE
+    for path in ("fit/train_step > system/loss > system/render",
+                 "fit/train_step > system/loss > system/guidance", "fit/train_step > system/backward",
+                 "fit/train_step > system/update", "fit/train_step > system/densify"):
+        assert reduced["count"][path] == pprof.TRACE_ACTIVE, path
+
+
 def test_profile_leaves_training_unchanged(runs):
     """The profiled run's metrics rows (but their host clocks) and final
     state equal the plain run's bit for bit."""
@@ -106,40 +121,6 @@ def test_device_trace_writes_when_the_block_raises(tmp_path):
     trace = pprof.read_trace(str(tmp_path))
     assert trace["steps"] == [f"ProfilerStep#{pprof.TRACE_WAIT + pprof.TRACE_WARMUP}",
                               f"ProfilerStep#{pprof.TRACE_WAIT + pprof.TRACE_WARMUP + 1}"]
-
-
-def test_time_fn_calls_as_jax_does():
-    """The port's time_fn calls ``vary`` with the JAX one's indices and
-    returns the same keys."""
-    calls = {"jax": [], "port": []}
-
-    def vary(side, array):
-        def f(i):
-            calls[side].append(i)
-            return (array(np.full((4,), float(i), np.float32)),)
-        return f
-
-    want = jprof.time_fn(lambda x: x * 2.0, iters=3, warmup=2, vary=vary("jax", jnp.asarray))
-    got = pprof.time_fn(lambda x: x * 2.0, iters=3, warmup=2, vary=vary("port", torch.tensor))
-    assert calls["port"] == calls["jax"] == [0, 0, 1, 2, 3]
-    assert sorted(got) == sorted(want) == ["compile_s", "ms"]
-    assert got["ms"] > 0 and got["compile_s"] > 0
-
-
-def test_step_timer_rows_match_jax(tmp_path):
-    rows = {}
-    for side, timer_cls in (("jax", jprof.StepTimer), ("port", pprof.StepTimer)):
-        path = tmp_path / side / "steps.jsonl"
-        timer = timer_cls(str(path))
-        for step in range(3):
-            timer.lap(step, loss=0.5 * step)
-        timer.dump()
-        rows[side] = [line for line in path.read_text().splitlines()]
-        assert [r["step"] for r in timer.rows] == [0, 1, 2]
-        assert all(r["ms"] >= 0 for r in timer.rows)
-    strip = [[{k: v for k, v in json.loads(line).items() if k != "ms"} for line in rows[side]]
-             for side in ("jax", "port")]
-    assert strip[0] == strip[1]
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ import numpy as np
 
 from ..utils.config import parse_structured
 from ..utils.registry import register
+from ..utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -255,9 +256,10 @@ class RandomCameraSampler:
             raise ValueError(cfg.light_sample_strategy)
 
         c2w = build_c2w(camera_positions, center, up)
-        rays_o, rays_d = rays_from_c2w(
-            c2w, fovy, self.height, self.width, cfg.rays_d_normalize
-        )
+        with span("data/rays"):
+            rays_o, rays_d = rays_from_c2w(
+                c2w, fovy, self.height, self.width, cfg.rays_d_normalize
+            )
         mvp = mvp_from_c2w(c2w, fovy, self.height, self.width)
 
         return {

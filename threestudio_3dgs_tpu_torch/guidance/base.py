@@ -25,13 +25,19 @@ import numpy as np
 
 from ..utils.config import parse_structured
 from ..utils.registry import register
+from ..utils.tracing import span
 from .clip import PromptEncoder, has_clip
 
 
 class BaseGuidance:
-    """Subclasses implement __call__(rgb, prompt_utils, batch, generator, sched)."""
+    """Subclasses implement guide(rgb, prompt_utils, batch, generator, sched);
+    a call runs it inside the ``system/guidance`` span."""
 
-    def __call__(self, rgb, prompt_utils, batch, generator=None, sched=None):
+    def __call__(self, rgb, prompt_utils, batch, generator=None, sched=None, **kwargs):
+        with span("system/guidance"):
+            return self.guide(rgb, prompt_utils, batch, generator, sched, **kwargs)
+
+    def guide(self, rgb, prompt_utils, batch, generator=None, sched=None):
         raise NotImplementedError
 
 

@@ -51,7 +51,7 @@ class FakeSDSGuidance(BaseGuidance):
     def sched_scalars(self, step: int) -> dict:
         return sds_sched_scalars(self.sds_cfg, step)
 
-    def __call__(self, rgb, prompt_utils, batch, generator=None, sched=None):
+    def guide(self, rgb, prompt_utils, batch, generator=None, sched=None):
         target = torch.tensor(self.cfg.target_color, dtype=torch.float32, device=rgb.device)
         ac = self.alphas_cumprod.to(rgb.device)
 
@@ -82,7 +82,7 @@ class FakeMSEGuidance(BaseGuidance):
             cfg = parse_structured(FakeGuidanceConfig, cfg)
         self.cfg = cfg
 
-    def __call__(self, rgb, prompt_utils, batch, generator=None, sched=None):
+    def guide(self, rgb, prompt_utils, batch, generator=None, sched=None):
         target = torch.tensor(self.cfg.target_color, dtype=torch.float32, device=rgb.device)
         return {"loss_sds": torch.mean((rgb - target) ** 2) * rgb.shape[1] * rgb.shape[2]}
 
@@ -166,7 +166,7 @@ class AnalyticSceneSDSGuidance(BaseGuidance):
             best_t = torch.where(hit, t, best_t)
         return color
 
-    def __call__(self, rgb, prompt_utils, batch, generator=None, sched=None, draws=None):
+    def guide(self, rgb, prompt_utils, batch, generator=None, sched=None, draws=None):
         """``draws`` ({"t", "noise"}, each optional) replaces the
         generator's draws in "sds" mode; only tests pass it."""
         targets = self.target_images(torch.as_tensor(batch["rays_o"], device=rgb.device),

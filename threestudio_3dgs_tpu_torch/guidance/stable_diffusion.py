@@ -158,7 +158,7 @@ class StableDiffusionGuidance(BaseGuidance):
     def sched_scalars(self, step: int) -> dict:
         return sds_sched_scalars(self.sds_cfg, step)
 
-    def __call__(self, rgb, prompt_utils, batch, generator=None, sched=None, draws=None):
+    def guide(self, rgb, prompt_utils, batch, generator=None, sched=None, draws=None):
         """``draws`` ({"t", "noise", "latent_noise"}, each optional) replaces
         the generator's draws; only tests pass it."""
         if generator is None:

@@ -34,6 +34,7 @@ from ..ops.gaussian_math import inverse_sigmoid
 from ..ops.sh import num_sh_bases, rgb_to_sh
 from ..utils.config import C, parse_structured
 from ..utils.registry import register
+from ..utils.tracing import host_read
 from . import ply_io
 from .optim import (
     AdamState, adam_update, clone_adam, init_adam, row_mask, zero_moments_field,
@@ -81,7 +82,7 @@ class GaussianState:
 
     @property
     def n_alive(self) -> int:
-        return int(self.alive.sum())
+        return host_read(self.alive.sum())
 
 
 @dataclasses.dataclass

@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ...utils.tracing import span
 from ..camera import Camera
 from . import blend as blend_ops
 from .binning import bin_gaussians, pair_gather
@@ -60,9 +61,10 @@ class Blend(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out):
         pair_feats, tile_ranges, out = ctx.saved_tensors
-        d_feats = blend_ops.blend_backward(
-            pair_feats, tile_ranges, out, g_out.contiguous(), *ctx.dims
-        )
+        with span("render/backward"):
+            d_feats = blend_ops.blend_backward(
+                pair_feats, tile_ranges, out, g_out.contiguous(), *ctx.dims
+            )
         return d_feats, None, None, None, None, None, None
 
 

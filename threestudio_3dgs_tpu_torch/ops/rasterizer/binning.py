@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.tracing import host_read, span
 from .expand import MASK_K, MASK_NONE, expand_bin, pack_rect, tile_reachable
 from .preprocess import Projected
 from .segsum import segsum_monotone
@@ -129,7 +130,7 @@ def plan_pairs(
     counts = counts_all[depth_order]
     cs = torch.cumsum(counts, dim=0)
     offsets = cs - counts
-    total = int(cs[-1]) if n else 0  # the one host read that sizes the buffers
+    total = host_read(cs[-1], "render/host_read") if n else 0  # sizes the buffers
     n_pairs = min(total, max_pairs)
     return PairPlan(
         offsets=offsets,
@@ -200,7 +201,9 @@ class PairGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_pairs: torch.Tensor):
         tag = "stacked" if ctx.binning.view_grid_y else ""
-        return segsum_monotone(*segsum_inputs(ctx.binning, d_pairs.contiguous()), tag=tag), None
+        with span("render/backward"):
+            return segsum_monotone(*segsum_inputs(ctx.binning, d_pairs.contiguous()),
+                                   tag=tag), None
 
 
 def pair_gather(feats: torch.Tensor, binning: Binning) -> torch.Tensor:

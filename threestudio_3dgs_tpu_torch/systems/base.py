@@ -32,7 +32,14 @@ With a mesh (``set_mesh``, from the trainer in a multi-rank run or with
 ``trainer.devices`` >= 1) the base step runs camera-sharded over the mesh's
 ranks (``parallel/data_parallel.py``): ``local_gradients`` on this rank's
 shard, the reductions, then ``finish_step``, the same tail as the
-one-process step.  Only the base step shards (``shards_camera_batch``)."""
+one-process step.  Only the base step shards (``shards_camera_batch``).
+
+Every system's step passes through the spans of ``utils/tracing.py``
+opened here: ``system/loss`` around ``forward_loss`` (``system/render``
+around each ``render_batch``, the guidance's ``system/guidance`` inside
+it), ``system/backward`` around the gradients, ``system/update`` around
+the optimizers and ``system/densify`` around the statistics, the
+capacity controller and the structural update."""
 
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ from ..utils.config import C, C_max, parse_structured
 from ..utils.loss import tv_loss
 from ..utils.registry import find
 from ..utils.saving import save_image_grid
+from ..utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -216,15 +224,18 @@ class BaseGaussianSystem:
 
     # -- forward ------------------------------------------------------------
     def render_batch(self, gauss, extra_params, batch, generator, sched, training,
-                     vs_dummy=None):
-        return self.renderer.batch_forward(
-            gauss, batch,
-            bg_params=extra_params.get("background") if extra_params else None,
-            generator=generator, training=training,
-            ambient_only=bool(sched.get("ambient_only", False)) if sched else False,
-            color_clip=sched["color_clip"] if sched else 1e9,
-            means2d_offset=vs_dummy,
-        )
+                     vs_dummy=None, **kwargs):
+        """The renderer's ``batch_forward`` of ``batch`` (``kwargs`` passed
+        on), inside the ``system/render`` span."""
+        with span("system/render"):
+            return self.renderer.batch_forward(
+                gauss, batch,
+                bg_params=extra_params.get("background") if extra_params else None,
+                generator=generator, training=training,
+                ambient_only=bool(sched.get("ambient_only", False)) if sched else False,
+                color_clip=sched["color_clip"] if sched else 1e9,
+                means2d_offset=vs_dummy, **kwargs,
+            )
 
     # -- adaptive pair capacity ------------------------------------------------
     def _pair_capacity(self) -> Optional[int]:
@@ -296,11 +307,13 @@ class BaseGaussianSystem:
         extra = {k: v.detach().requires_grad_(True)
                  for k, v in flatten_extra(state.extra_params).items()}
         gs = dataclasses.replace(gauss, params=dataclasses.replace(gauss.params, **leaves))
-        total, logs, outs, vs_dummy = self.forward_loss(gs, unflatten_extra(extra), batch, step,
-                                                        sched, generator)
+        with span("system/loss"):
+            total, logs, outs, vs_dummy = self.forward_loss(gs, unflatten_extra(extra), batch,
+                                                            step, sched, generator)
 
         inputs = list(leaves.values()) + list(extra.values()) + [vs_dummy]
-        grads = torch.autograd.grad(total, inputs, allow_unused=True)
+        with span("system/backward"):
+            grads = torch.autograd.grad(total, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
         g_gauss = dict(zip(leaves.keys(), grads[:len(leaves)]))
         g_extra = dict(zip(extra.keys(), grads[len(leaves):-1]))
@@ -316,18 +329,20 @@ class BaseGaussianSystem:
         statistics (``add_stats(gauss)``), the capacity controller and the
         structural update: the part of a step after its gradients, run
         alike by the one-process and the data-parallel steps."""
-        gauss = self.geometry.apply_gradients(state.gauss, g_gauss, sched["lrs"])
-        extra_params, extra_opt = state.extra_params, state.extra_opt
-        if g_extra:
-            params = {k: v.detach() for k, v in flatten_extra(state.extra_params).items()}
-            new = adam_update(params, g_extra, extra_opt, {k: self.extra_lr for k in params},
-                              eps=1e-8)
-            extra_params = unflatten_extra(new)
-        gauss = add_stats(gauss)
-        if capacity is not None:
-            self._pair_log.append((logs["n_pairs_max"], logs["n_dropped_pairs"]))
-            self._adapt_pair_capacity(step)
-        gauss, _ = self.geometry.update_states(gauss, step, generator)
+        with span("system/update"):
+            gauss = self.geometry.apply_gradients(state.gauss, g_gauss, sched["lrs"])
+            extra_params, extra_opt = state.extra_params, state.extra_opt
+            if g_extra:
+                params = {k: v.detach() for k, v in flatten_extra(state.extra_params).items()}
+                new = adam_update(params, g_extra, extra_opt, {k: self.extra_lr for k in params},
+                                  eps=1e-8)
+                extra_params = unflatten_extra(new)
+        with span("system/densify"):
+            gauss = add_stats(gauss)
+            if capacity is not None:
+                self._pair_log.append((logs["n_pairs_max"], logs["n_dropped_pairs"]))
+                self._adapt_pair_capacity(step)
+            gauss, _ = self.geometry.update_states(gauss, step, generator)
         return SystemState(gauss=gauss, extra_params=extra_params, extra_opt=extra_opt), logs
 
     def train_step(self, state: SystemState, batch: Dict[str, Any], step: int,

@@ -146,13 +146,9 @@ class Zero123System(BaseGaussianSystem):
     # -- forward ----------------------------------------------------------------
     def render_batch(self, gauss, extra_params, batch, generator, sched, training,
                      vs_dummy=None, ambient_ratio=None, shading=None):
-        return self.renderer.batch_forward(
-            gauss, batch,
-            bg_params=extra_params.get("background") if extra_params else None,
-            generator=generator, training=training,
-            ambient_only=bool(sched.get("ambient_only", False)) if sched else False,
-            color_clip=sched["color_clip"] if sched else 1e9,
-            means2d_offset=vs_dummy, ambient_ratio=ambient_ratio, shading=shading,
+        return super().render_batch(
+            gauss, extra_params, batch, generator, sched, training, vs_dummy,
+            ambient_ratio=ambient_ratio, shading=shading,
             deformation_params=extra_params.get("deformation") if extra_params else None,
         )
 

@@ -17,6 +17,9 @@ Drives the train / validate / test / predict / export lifecycle:
   * export: the exporter's PLY and mesh;
   * predict: the SuGaR system's textured-mesh bake (OBJ + MTL + PNG);
     the other systems have no predict surface and run the test renders;
+  * spans (``utils/tracing.py``) around the data batch, the train step,
+    each logged value's host read, the metrics row, validation and
+    checkpoints, recorded while a torch profiler runs;
   * wandb (``loggers.wandb``, at the top level or under ``system:``): with
     ``enable: true`` each metrics row also goes to a wandb run, finished at
     the end of ``fit``; a wandb that does not import or initialise is
@@ -51,6 +54,7 @@ from .utils.ckpt import load_checkpoint, save_checkpoint
 from .utils.config import ExperimentConfig, dump_config
 from .utils.registry import find
 from .utils.saving import save_image_grid, save_img_sequence
+from .utils.tracing import host_read, span
 
 
 # failures that a retry cannot cure: raised at once
@@ -59,7 +63,9 @@ NOT_RETRIED = (TypeError, ValueError, AttributeError, KeyError, IndexError, Asse
 
 
 def _host(v: Any) -> float:
-    return float(v.detach().cpu()) if isinstance(v, torch.Tensor) else float(v)
+    if isinstance(v, torch.Tensor):
+        return float(host_read(v.detach(), "fit/host_read"))
+    return float(v)
 
 
 class Trainer:
@@ -186,9 +192,12 @@ class Trainer:
         t_start = time.time()
         while self.step < self.max_steps:
             t_step = time.perf_counter()
-            batch = self.data.train_batch(self.step)
+            with span("fit/data"):
+                batch = self.data.train_batch(self.step)
             try:
-                self.state, logs = self.system.train_step(self.state, batch, self.step, generator)
+                with span("fit/train_step"):
+                    self.state, logs = self.system.train_step(self.state, batch, self.step,
+                                                              generator)
             except NOT_RETRIED:
                 raise
             except Exception as e:  # a device fault, an out-of-memory
@@ -222,17 +231,20 @@ class Trainer:
                 # this step's batch, train step and structural update, up to
                 # its losses on the host (one step when every step is logged)
                 logs_host["step_s"] = round(time.perf_counter() - t_step, 6)
-                self._log_metrics(logs_host)
-                msg = " ".join(f"{k}={v:.4g}" for k, v in sorted(logs_host.items()))
-                who = f" rank {self.rank}/{self.world}" if self.world > 1 else ""
-                print(f"[trainer{who}] {msg}", flush=True)
+                with span("fit/log"):
+                    self._log_metrics(logs_host)
+                    msg = " ".join(f"{k}={v:.4g}" for k, v in sorted(logs_host.items()))
+                    who = f" rank {self.rank}/{self.world}" if self.world > 1 else ""
+                    print(f"[trainer{who}] {msg}", flush=True)
 
             if self.val_interval and self.step % int(self.val_interval) == 0:
-                self.validate()
+                with span("fit/validate"):
+                    self.validate()
             if self.ckpt_every and self.step % int(self.ckpt_every) == 0:
-                if self.ckpt_keep_all:
-                    self.save_ckpt(f"step{self.step}.ckpt.npz")
-                self.save_ckpt("last.ckpt.npz")
+                with span("fit/checkpoint"):
+                    if self.ckpt_keep_all:
+                        self.save_ckpt(f"step{self.step}.ckpt.npz")
+                    self.save_ckpt("last.ckpt.npz")
             if on_step is not None:
                 on_step()
         self.save_ckpt("last.ckpt.npz")

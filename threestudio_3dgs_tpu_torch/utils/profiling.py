@@ -1,147 +1,27 @@
-"""Where the time goes on the card (port of the JAX package's
-``utils/profiling.py`` idea: a device trace of the hot path).
+"""The launcher's device trace, and the scenes, kernel inputs and
+card-against-CPU checks that ``chip_smoke.py`` and ``tests/test_torch_gpu.py``
+share.
 
-    python -m threestudio_3dgs_tpu_torch.utils.profiling [--steps 3] [--trace-dir DIR]
-        [--sd-dir DIR | --config YAML [key=value ...]]
-
-Profiles, with ``torch.profiler`` (CPU and CUDA activities), these windows:
-
-  * ``train``: training steps of ``configs/gaussian_splatting.yaml`` at the
-    config's own shape (512^2, B=4, fake SDS guidance) after two warm-up
-    steps;
-  * ``render``: forward+backward ``rasterize`` of bench.py's scene (1M
-    Gaussians, 512^2, tile 32, seed 0);
-  * with ``--sd-dir``: ``train_sd``, the same steps with the YAML's own
-    stable-diffusion-guidance on that diffusers directory (a seeded random
-    SD 2.1-base one is written there first if it holds no weights), and
-    its two guidance stages alone on the step's shapes: ``sd_unet`` (one
-    UNet call on the CFG batch of 8) and ``sd_vae`` (VAE encode of the 4
-    views, forward and backward);
-  * with ``--config`` instead of the above: ``train_<config name>``, the
-    training steps of that YAML with the given overrides (e.g. a guidance
-    or prompt-processor directory, the material's warm-up); for the 4D
-    system (``gs4d*.yaml``) also its two substeps alone, each a forward
-    and backward on the step's shapes: ``<name>_zero123`` (the random
-    views' renders and the temporal Zero123 SDS) and ``<name>_ref`` (the
-    reference frames' renders and their losses).
-
-For each window it prints the wall time per iteration (host clock around
-work that ends in a synchronise, without and with the profiler), for the
-training step the host-side camera sampler's share, the device-busy share (the sum of kernel
-and copy times over the window's wall time; one stream, so nothing
-overlaps), the device time per kernel family and the top kernels.  Needs
-a CUDA device.
-
-It also holds the scenes, kernel inputs and card-against-CPU checks that
-``chip_smoke.py`` and ``tests/test_torch_gpu.py`` share, and the
-counterparts of the JAX package's ``utils/profiling.py``:
-``device_trace`` (the launcher's ``--profile``: a ``torch.profiler``
-trace of the first training steps, which ``read_trace`` reads back),
-``time_fn`` and ``StepTimer``.
+``device_trace`` (the launcher's ``--profile``, the counterpart of the JAX
+package's ``jax.profiler`` trace) records the first training steps of
+``fit`` with ``torch.profiler`` (CPU and CUDA activities); ``read_trace``
+reads the trace back.  The trace holds the program's spans
+(``utils/tracing.py``) beside the CPU ops and the kernels, on one clock:
+``benchmark/spans.py`` reduces it by span (device ms, host self ms, idle
+ms).
 """
 
 from __future__ import annotations
 
-import argparse
 import contextlib
-import dataclasses
 import glob
 import json
 import os
-import re
-import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
-from torch.utils._pytree import tree_leaves
-
-# kernel-name patterns -> family, first match wins
-FAMILIES = [
-    ("K1 blend forward", r"blend_fwd_kernel"),
-    ("K2 blend backward", r"blend_bwd_kernel"),
-    ("K3 segmented sum", r"segsum_kernel"),
-    ("K4 expand", r"expand_kernel"),
-    ("K5 flash attention", r"flash_fwd_(wgmma|split)|split_planes"),
-    # cuDNN's NCHW <-> NHWC transposes around each convolution
-    ("layout transpose (library)", r"nchwToNhwc|nhwcToNchw"),
-    ("conv / matmul (library)", r"xmma|cudnn|[Cc]onv|gemm|cutlass|sm90_|wgrad|dgrad|fprop|nvjet"),
-    ("norm (library)", r"group_norm|layer_norm|GroupNorm|LayerNorm|[Mm]oments"
-                       r"|ComputeInternalGradients|GammaBeta"),
-    ("softmax (library)", r"[Ss]oftmax"),
-    ("sort (library)", r"[Rr]adix|[Ss]ort|[Mm]erge"),
-    ("scan / search (library)", r"[Ss]can|[Ss]earch|cumsum"),
-    ("gather / scatter / index", r"[Ii]ndex|[Gg]ather|[Ss]catter"),
-    ("reduction", r"[Rr]educe"),
-    ("copy / fill", r"[Mm]emcpy|[Mm]emset|copy|fill|Fill"),
-    ("elementwise", r"[Ee]lementwise|vectorized|unrolled"),
-]
-
-
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
-def device_kernels(prof) -> Dict[str, float]:
-    """Device microseconds by kernel name of a profiler's window."""
-    kernels: Dict[str, float] = {}
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + us
-    return kernels
-
-
-def summarize(kernels: Dict[str, float], wall_s: float, iters: int) -> Dict[str, object]:
-    """Device time per kernel family and the top kernels of one window, from
-    its device microseconds by kernel name."""
-    families: Dict[str, float] = {}
-    for name, us in kernels.items():
-        fam = next((f for f, pat in FAMILIES if re.search(pat, name)), "other")
-        families[fam] = families.get(fam, 0.0) + us
-    busy_ms = sum(kernels.values()) / 1e3
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
-    return {
-        "iters": iters,
-        "wall_ms_per_iter": wall_s * 1e3 / iters,
-        "device_ms_per_iter": busy_ms / iters,
-        "device_busy_share": busy_ms / (wall_s * 1e3),
-        "families_ms_per_iter": {
-            k: v / 1e3 / iters for k, v in sorted(families.items(), key=lambda kv: -kv[1])
-        },
-        "top_kernels_ms_per_iter": [(k[:90], v / 1e3 / iters) for k, v in top],
-    }
-
-
-def wall_ms(fn: Callable[[], None], iters: int) -> float:
-    """Host-clock time per call, ending in a synchronise."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
-
-
-def profile_window(fn: Callable[[], None], iters: int, trace_path: str = "") -> Dict:
-    """Unprofiled wall time per call, then one profiled window."""
-    unprofiled = wall_ms(fn, iters)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if trace_path:
-        prof.export_chrome_trace(trace_path)
-    return {"wall_ms_per_iter_unprofiled": unprofiled,
-            **summarize(device_kernels(prof), wall, iters)}
-
 
 # the window of device_trace, in training steps: the first step skipped (the
 # kernels' build, the allocator's warm-up), one step of warm-up, then
@@ -197,55 +77,6 @@ def read_trace(logdir: str) -> Dict[str, Any]:
             "steps": sorted({e["name"] for e in steps}),
             "wall_s": sum(float(e.get("dur", 0.0)) for e in steps) / 1e6,
             "kernels": kernels}
-
-
-def _wait(out) -> None:
-    """Wait for the device work behind the tensors of ``out`` (the CPU's
-    is done when a call returns)."""
-    for device in {t.device for t in tree_leaves(out)
-                   if isinstance(t, torch.Tensor) and t.device.type == "cuda"}:
-        torch.cuda.synchronize(device)
-
-
-def time_fn(fn: Callable, *args, iters: int = 8, warmup: int = 1,
-            vary: Optional[Callable[[int], tuple]] = None) -> Dict[str, float]:
-    """Wall time of ``fn(*args)`` (of ``fn(*vary(i))`` with ``vary``): the
-    first call alone (``compile_s``: the kernels' build, the allocator's
-    warm-up), ``warmup - 1`` more, then ``iters`` calls back to back with
-    one synchronise of the outputs' device after them (``ms`` a call)."""
-    t0 = time.perf_counter()
-    _wait(fn(*(vary(0) if vary else args)))
-    compile_s = time.perf_counter() - t0
-    for _ in range(max(warmup - 1, 0)):
-        _wait(fn(*(vary(0) if vary else args)))
-    t0 = time.perf_counter()
-    outs = [fn(*(vary(i + 1) if vary else args)) for i in range(iters)]
-    _wait(outs)
-    ms = (time.perf_counter() - t0) / iters * 1000.0
-    return {"ms": ms, "compile_s": compile_s}
-
-
-class StepTimer:
-    """Per-step wall timing of a training loop, dumped as jsonl."""
-
-    def __init__(self, path: Optional[str] = None):
-        self.path = path
-        self.rows: List[Dict[str, Any]] = []
-        self._t = time.perf_counter()
-
-    def lap(self, step: int, **extra) -> Dict[str, Any]:
-        now = time.perf_counter()
-        row = {"step": step, "ms": (now - self._t) * 1000.0, **extra}
-        self._t = now
-        self.rows.append(row)
-        return row
-
-    def dump(self) -> None:
-        if self.path:
-            os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
-            with open(self.path, "w") as f:
-                for row in self.rows:
-                    f.write(json.dumps(row) + "\n")
 
 
 def lookat_c2w(eye) -> np.ndarray:
@@ -442,134 +273,3 @@ def tiny_zero123_card_vs_cpu(root: str, seed: int = 0) -> Dict[str, tuple]:
         results[device] = (float(out["loss_sds"].detach()), x.grad.cpu(),
                            native.LAUNCHES["flash_attention_forward"])
     return results
-
-
-DEFAULT_CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs",
-                              "gaussian_splatting.yaml")
-
-
-def train_step(device, run_dir: str, config: str = DEFAULT_CONFIG,
-               overrides=("system.guidance_type=fake-sds-guidance",)) -> Callable[[], None]:
-    """One training step of ``config`` at its own shape with its
-    ``overrides`` (by default gaussian_splatting.yaml with fake guidance)."""
-    from ..trainer import Trainer
-    from ..utils.config import load_config
-
-    cfg = load_config(config, list(overrides) + [
-        f"exp_root_dir={run_dir}", "trainer.val_check_interval=0",
-    ])
-    trainer = Trainer(cfg, device=device)
-    trainer.state = trainer.system.init_state(cfg.seed)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    counter = {"step": 0}
-
-    def step():
-        batch = trainer.data.train_batch(counter["step"])
-        trainer.state, logs = trainer.system.train_step(
-            trainer.state, batch, counter["step"], generator)
-        float(logs["train/loss_total"].detach())  # the per-step host read fit() makes
-        counter["step"] += 1
-
-    step.data_batch = lambda: trainer.data.train_batch(counter["step"])
-    step.trainer = trainer
-    return step
-
-
-def sd_stages(trainer) -> Dict[str, Callable[[], object]]:
-    """The SD guidance's two stages alone, at the training step's shapes:
-    one UNet call on the CFG batch (2B latents) and the VAE encode of the B
-    views with its backward."""
-    guidance = trainer.system.guidance
-    data = trainer.cfg.data
-    b, h, w = data["batch_size"], data["height"], data["width"]
-    device = trainer.device
-    gen = torch.Generator(device=device).manual_seed(0)
-    rgb = torch.rand((b, h, w, 3), generator=gen, device=device, requires_grad=True)
-    with torch.no_grad():
-        latents = guidance.encode_rgb(rgb, gen)
-    t = torch.full((b,), 500, device=device)
-    batch = trainer.data.train_batch(0)
-    emb = torch.as_tensor(trainer.system.prompt_utils.get_text_embeddings(
-        batch["elevation"], batch["azimuth"]), device=device)
-    return {
-        "sd_unet": lambda: guidance.denoiser(latents, t, emb),
-        "sd_vae": lambda: torch.autograd.grad(guidance.encode_rgb(rgb, gen).sum(), rgb),
-    }
-
-
-def substeps_4d(trainer, name: str) -> Dict[str, Callable[[], object]]:
-    """The 4D system's two substeps alone on the first batch's shapes, each
-    a forward and a backward to the field's parameters."""
-    system, state = trainer.system, trainer.state
-    batch = trainer.data.train_batch(0)
-    sched = system.sched_scalars(0)
-    gen = torch.Generator(device=trainer.device).manual_seed(0)
-    leaves = {k: v.detach().requires_grad_(True) for k, v in state.gauss.params.as_dict().items()}
-    gs = dataclasses.replace(state.gauss, params=dataclasses.replace(state.gauss.params, **leaves))
-    inputs = list(leaves.values())
-
-    def zero123():
-        rcb = batch["random_camera"]
-        out = system.render_batch(gs, state.extra_params, rcb, gen, sched, True)
-        g = system.guidance(out["comp_rgb"], system.prompt_utils, rcb, generator=gen,
-                            sched=sched.get("guidance"))
-        torch.autograd.grad(g["loss_sds"], inputs, allow_unused=True)
-
-    def ref():
-        out = system.render_batch(gs, state.extra_params, batch, gen, sched, True)
-        torch.autograd.grad(system._ref_losses(out, batch, sched, {}), inputs, allow_unused=True)
-
-    return {f"{name}_zero123": zero123, f"{name}_ref": ref}
-
-
-def main(argv: List[str] = None) -> Dict[str, Dict]:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--steps", type=int, default=3)
-    parser.add_argument("--run-dir", default=os.path.join("outputs", "profile"))
-    parser.add_argument("--trace-dir", default="", help="write chrome traces here")
-    parser.add_argument("--sd-dir", default="", help="also profile SD guidance on this directory")
-    parser.add_argument("--config", default="",
-                        help="profile only the training step of this config")
-    parser.add_argument("overrides", nargs="*", help="dotlist overrides of --config")
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise RuntimeError("profiling needs a CUDA device")
-    device = torch.device("cuda")
-    if args.trace_dir:
-        os.makedirs(args.trace_dir, exist_ok=True)
-    windows = [("train", lambda: train_step(device, args.run_dir)),
-               ("render", lambda: render_step(bench_scene(device)))]
-    if args.config:
-        name = "train_" + os.path.splitext(os.path.basename(args.config))[0]
-        windows = [(name, lambda: train_step(device, args.run_dir, args.config, args.overrides))]
-    elif args.sd_dir:
-        from ..diffusion.convert import write_random_checkpoint
-
-        if not os.path.exists(os.path.join(args.sd_dir, "unet", "diffusion_pytorch_model.bin")):
-            write_random_checkpoint(args.sd_dir, seed=0, device=device)
-        windows.append(("train_sd", lambda: train_step(
-            device, args.run_dir,
-            overrides=[f"system.guidance.pretrained_model_name_or_path={args.sd_dir}"])))
-    results = {}
-    while windows:
-        name, make = windows.pop(0)
-        fn = make()
-        for _ in range(2):
-            fn()
-        trace = os.path.join(args.trace_dir, f"{name}.json") if args.trace_dir else ""
-        results[name] = profile_window(fn, args.steps, trace)
-        if hasattr(fn, "data_batch"):  # the host-side camera sampler alone
-            results[name]["data_batch_ms"] = wall_ms(fn.data_batch, args.steps)
-        print(f"[profile] {name}: {json.dumps(results[name])}", flush=True)
-        if name == "train_sd":
-            windows.extend((stage, lambda f=f: f) for stage, f in sd_stages(fn.trainer).items())
-        if name.startswith("train_gs4d"):
-            windows.extend((stage, lambda f=f: f)
-                           for stage, f in substeps_4d(fn.trainer, name[len("train_"):]).items())
-        del fn
-        torch.cuda.empty_cache()
-    return results
-
-
-if __name__ == "__main__":
-    main()
