@@ -2,7 +2,8 @@
 package's ``data/image.py``): a fixed default camera with the RGBA image,
 its mask and optional depth / normal maps, resolution milestones, and an
 embedded random-camera sampler whose batch rides along as
-``batch["random_camera"]``; val / test views are the random-camera
+``batch["random_camera"]`` (its rays built on the module's ``device``
+where it is given one); val / test views are the random-camera
 config's fixed circles.  With an empty ``image_path`` a grey synthetic
 image stands in.
 
@@ -227,7 +228,7 @@ def _load_rgba(path: str, width: int, height: int) -> np.ndarray:
 class SingleImageDataModule:
     Config = SingleImageDataModuleConfig
 
-    def __init__(self, cfg=None, seed: int = 0, **kwargs):
+    def __init__(self, cfg=None, seed: int = 0, device=None, **kwargs):
         if cfg is None:
             cfg = SingleImageDataModuleConfig(**kwargs)
         elif isinstance(cfg, dict):
@@ -235,7 +236,7 @@ class SingleImageDataModule:
         self.cfg = cfg
         self.random_camera_cfg = parse_structured(RandomCameraDataModuleConfig,
                                                   dict(cfg.random_camera))
-        self.random_sampler = (RandomCameraSampler(self.random_camera_cfg, seed)
+        self.random_sampler = (RandomCameraSampler(self.random_camera_cfg, seed, device)
                                if cfg.use_random_camera else None)
         self.heights = [cfg.height] if isinstance(cfg.height, int) else list(cfg.height)
         self.widths = [cfg.width] if isinstance(cfg.width, int) else list(cfg.width)

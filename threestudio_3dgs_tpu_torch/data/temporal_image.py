@@ -40,7 +40,7 @@ class TemporalRandomImageDataModuleConfig(SingleImageDataModuleConfig):
 class TemporalImageDataModule(SingleImageDataModule):
     Config = TemporalRandomImageDataModuleConfig
 
-    def __init__(self, cfg=None, seed: int = 0, **kwargs):
+    def __init__(self, cfg=None, seed: int = 0, device=None, **kwargs):
         if cfg is None:
             cfg = TemporalRandomImageDataModuleConfig(**kwargs)
         elif isinstance(cfg, dict):
@@ -53,7 +53,7 @@ class TemporalImageDataModule(SingleImageDataModule):
         self.frame_indices = np.arange(cfg.video_length, dtype=np.int32)
         denom = cfg.video_length if cfg.norm_timestamp else max(cfg.video_length - 1, 1)
         self.timestamps = (self.frame_indices / denom).astype(np.float32)
-        super().__init__(dataclasses.replace(cfg, random_camera=rc), seed)
+        super().__init__(dataclasses.replace(cfg, random_camera=rc), seed, device)
 
     def _load_images(self) -> None:
         """Every frame at the current size: ``<i:03>_rgba.png`` (else

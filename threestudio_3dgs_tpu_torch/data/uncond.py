@@ -7,7 +7,10 @@ of the reference's random-camera data module
 uniform-on-sphere elevation, batch-uniform azimuth stratification, camera /
 center / up perturbations, two light strategies, progressive view-range
 widening, resolution milestones, and the fixed-circle val/test datasets.
-Batches are plain numpy dicts; the training step converts to device arrays.
+Batches are numpy dicts, but for a sampler given a ``device``: its
+per-pixel ``rays_o`` / ``rays_d`` are then built there from the drawn
+``c2w`` and ``fovy`` (:func:`device_rays`), and only the draws stay on the
+host.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..utils.config import parse_structured
 from ..utils.registry import register
@@ -114,6 +118,44 @@ def rays_from_c2w(c2w, fovy_rad, height, width, normalize=True):
     return rays_o.astype(np.float32), rays_d.astype(np.float32)
 
 
+def pixel_grid(height, width, device):
+    """The unit-focal pixel centres' offsets from the image centre that
+    :func:`rays_from_c2w`'s meshgrid holds: x (W,) and y (H,), on ``device``."""
+    xs = torch.arange(width, dtype=torch.float32, device=device) + 0.5
+    ys = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+    return xs - width * 0.5, -(ys - height * 0.5)
+
+
+def device_rays(c2w, fovy_rad, height, width, normalize, grid):
+    """:func:`rays_from_c2w`'s rays built on the device of ``grid``
+    (:func:`pixel_grid`) from the host's (B, 4, 4) ``c2w`` and (B,) ``fovy``.
+
+    The B rotations, origins and focal lengths go over in one non-blocking
+    copy (from pinned memory to a card), so the build reads nothing back.
+    ``rays_d`` is the unit-focal grid rotated by ``c2w[:, :3, :3]`` in f32
+    products and sums, as numpy's f32 ``einsum`` forms it (a matmul may take
+    TF32 on a card); ``rays_o`` is the camera position expanded over the
+    pixels, with no per-pixel storage."""
+    device = grid[0].device
+    b = c2w.shape[0]
+    host = torch.empty((b, 13), dtype=torch.float32, pin_memory=device.type == "cuda")
+    consts = host.numpy()
+    consts[:, :9] = c2w[:, :3, :3].transpose(0, 2, 1).reshape(b, 9)  # rotation columns
+    consts[:, 9:12] = c2w[:, :3, 3]
+    consts[:, 12] = 0.5 * height / np.tan(0.5 * fovy_rad)
+    dev = host.to(device, non_blocking=True)
+    cols = dev[:, :9].view(b, 3, 1, 1, 3)  # cols[:, c] = c2w[:, :3, c]
+    focal = dev[:, 12:]
+    gx, gy = grid
+    rays_d = ((gx / focal)[:, None, :, None] * cols[:, 0]
+              + (gy / focal)[:, :, None, None] * cols[:, 1])
+    rays_d.sub_(cols[:, 2])  # the grid's z is -1
+    if normalize:
+        rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True).clamp_min(1e-12)
+    rays_o = dev[:, 9:12].view(b, 1, 1, 3).expand(b, height, width, 3)
+    return rays_o, rays_d
+
+
 def _gl_projection(fovy_rad, aspect, near=0.1, far=1000.0):
     b = fovy_rad.shape[0]
     proj = np.zeros((b, 4, 4), np.float32)
@@ -132,11 +174,17 @@ def mvp_from_c2w(c2w, fovy_rad, height, width):
 
 
 class RandomCameraSampler:
-    """Training-time sampler (reference RandomCameraIterableDataset)."""
+    """Training-time sampler (reference RandomCameraIterableDataset).  With
+    a ``device`` its batches' rays are tensors built there; without one,
+    numpy arrays built on the host.  ``ray_builds`` counts the batches of
+    each."""
 
-    def __init__(self, cfg: RandomCameraDataModuleConfig, seed: int = 0):
+    def __init__(self, cfg: RandomCameraDataModuleConfig, seed: int = 0, device=None):
         self.cfg = cfg
         self.rng = np.random.default_rng(seed)
+        self.device = None if device is None else torch.device(device)
+        self.ray_builds = {"device": 0, "host": 0}
+        self._grids = {}  # (height, width) -> pixel_grid on self.device
         self.heights = [cfg.height] if isinstance(cfg.height, int) else list(cfg.height)
         self.widths = [cfg.width] if isinstance(cfg.width, int) else list(cfg.width)
         self.batch_sizes = (
@@ -172,6 +220,16 @@ class RandomCameraSampler:
             r * self.cfg.azimuth_range[0],
             r * self.cfg.azimuth_range[1],
         ]
+
+    def _rays(self, c2w, fovy):
+        h, w = self.height, self.width
+        if self.device is None:
+            self.ray_builds["host"] += 1
+            return rays_from_c2w(c2w, fovy, h, w, self.cfg.rays_d_normalize)
+        self.ray_builds["device"] += 1
+        if (h, w) not in self._grids:
+            self._grids[(h, w)] = pixel_grid(h, w, self.device)
+        return device_rays(c2w, fovy, h, w, self.cfg.rays_d_normalize, self._grids[(h, w)])
 
     def sample(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -257,9 +315,7 @@ class RandomCameraSampler:
 
         c2w = build_c2w(camera_positions, center, up)
         with span("data/rays"):
-            rays_o, rays_d = rays_from_c2w(
-                c2w, fovy, self.height, self.width, cfg.rays_d_normalize
-            )
+            rays_o, rays_d = self._rays(c2w, fovy)
         mvp = mvp_from_c2w(c2w, fovy, self.height, self.width)
 
         return {
@@ -386,13 +442,13 @@ def random_predict_views(cfg: RandomCameraDataModuleConfig, seed: int = 0):
 class RandomCameraDataModule:
     Config = RandomCameraDataModuleConfig
 
-    def __init__(self, cfg=None, seed: int = 0, **kwargs):
+    def __init__(self, cfg=None, seed: int = 0, device=None, **kwargs):
         if cfg is None:
             cfg = RandomCameraDataModuleConfig(**kwargs)
         elif isinstance(cfg, dict):
             cfg = parse_structured(RandomCameraDataModuleConfig, cfg)
         self.cfg = cfg
-        self.train_sampler = RandomCameraSampler(cfg, seed)
+        self.train_sampler = RandomCameraSampler(cfg, seed, device)
 
     def train_batch(self, global_step: int) -> Dict[str, Any]:
         self.train_sampler.update_step(global_step)

@@ -1,7 +1,8 @@
 """Training loop (port of the JAX package's ``trainer.py``).
 
 Drives the train / validate / test / predict / export lifecycle:
-  * fit: per step a numpy camera batch from the data module, one system
+  * fit: per step a camera batch from the data module (numpy draws, the
+    per-pixel rays built on the trainer's device), one system
     train step on the device (with its structural update when due), metrics
     logged to ``metrics.jsonl`` on logged steps (which is where the host
     reads the losses), validation and checkpoints at their intervals;
@@ -72,7 +73,7 @@ class Trainer:
     def __init__(self, cfg: ExperimentConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.data = find(cfg.data_type)(cfg.data, seed=cfg.seed)
+        self.data = find(cfg.data_type)(cfg.data, seed=cfg.seed, device=self.device)
         self.system = find(cfg.system_type)(dict(cfg.system), device=self.device)
         # a temporal system conditions its guidance on the video frames
         if hasattr(self.system, "attach_video_frames") and hasattr(self.data, "rgbs"):
