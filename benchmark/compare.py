@@ -1,7 +1,9 @@
-"""The check that decides ``correct``: the plain reference follows the
-warm-up steps the program took inside ``fit`` (same seed, camera batches
-and draws; its own initial field, background MLP and weights read from the
-same files) and the numbers the cell names are held to its limits:
+"""The check that decides ``correct``: the plain reference of the
+configuration's kind (``kinds/<kind>.py``'s ``Reference``) follows the
+warm-up steps the program took inside ``fit`` (same seed, camera batches,
+draws and input files; its own initial field, background MLP and weights
+read from the same files) and the numbers the cell names are held to its
+limits:
 
   * ``loss``: the worst step's |program - reference| / |reference| of the
     total loss;
@@ -38,6 +40,7 @@ from typing import Any, Callable, Dict, List
 import torch
 import yaml
 
+from . import kinds, weights
 from .reference import diffusion, train
 
 FLOOR = 1e-3  # a leaf counts when its reference gradient is at least this x the median's
@@ -81,21 +84,21 @@ def follow(cell: Dict[str, Any], wdir: str, prog: Dict[str, Any], device,
     with open(os.path.join(prog["root"], cell["traffic"]["yaml"])) as f:
         yaml_cfg = apply_overrides(yaml.safe_load(f), prog["overrides"])
     config = cell["config"]
-    unet_w = diffusion.load_weights(os.path.join(wdir, "unet", "diffusion_pytorch_model.bin"),
-                                    device)
-    vae_w = diffusion.load_weights(os.path.join(wdir, "vae", "diffusion_pytorch_model.bin"),
-                                   device)
-    ref = train.TextTo3D(yaml_cfg, config, unet_w, vae_w, device, precision)
+    kind = kinds.load(cell)
+    model_w = {sub["name"]: diffusion.load_weights(
+        os.path.join(wdir, sub["name"], sub.get("file", weights.FILE)), device)
+        for sub in kind.weight_files(config)}
+    ref = kind.Reference(yaml_cfg, config, model_w, device, precision)
     state = ref.init_state(prog["seed"])
-    p0 = {k: v.clone() for k, v in ref._flat(state).items()}
+    p0 = {k: v.clone() for k, v in ref.flat(state).items()}
     losses, g1 = [], None
     for step, (batch, draws) in enumerate(zip(prog["batches"], prog["draws"])):
         loss, grads = ref.step(state, batch, step, train.Draws(list(draws)))
         losses.append(loss)
         if step == 0:
             g1 = {k: g.detach().clone() for k, g in grads.items()}
-    p3 = {k: v.clone() for k, v in ref._flat(state).items()}
-    del unet_w, vae_w, ref, state
+    p3 = {k: v.clone() for k, v in ref.flat(state).items()}
+    del model_w, ref, state
     return {"loss": losses, "p0": p0, "g1": g1, "p3": p3}
 
 

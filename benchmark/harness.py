@@ -6,11 +6,15 @@ a few of them recorded by ``torch.profiler``.
 A run, in order:
 
  1. the cell's files (``workloads/<cell>.json`` names ``configs/<config>``
-    and ``traffic/<traffic>``); a card, or it stops before any result;
- 2. the weights of the (configuration, seed) pair (``weights.py``; the
-    seconds spent writing them are not set-up);
- 3. the trainer from the traffic's YAML with its overrides, the seed, the
-    weights and a run directory inside the checkout; the initial state;
+    and ``traffic/<traffic>``) and the configuration's kind module
+    (``kinds/<kind>.py``); a card, or it stops before any result;
+ 2. the weights of the (configuration, seed) pair, the sub-models the
+    kind names (``weights.py``; the seconds spent writing them are not
+    set-up);
+ 3. the kind's seeded input files, where it has any, in a run directory
+    inside the checkout; the trainer from the traffic's YAML with its
+    overrides, the seed, the weights, the run directory and the inputs'
+    overrides; the initial state;
  4. ``fit`` with an ``on_step`` hook.  The first ``warmup_steps`` steps
     warm every shape up and are the steps the reference follows: the
     random draws they take from the step generator are recorded (a
@@ -39,6 +43,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from . import kinds
+
 FORBIDDEN = ("jax", "jaxlib", "flax", "threestudio_3dgs_tpu")
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 UNTRACED_STEPS = 5  # steps a traced run times after its recorded ones, at least
@@ -59,7 +65,7 @@ def load_cell(name: str, bench_dir: str = BENCH_DIR) -> Dict[str, Any]:
 
     cell = read("workloads", name + ".json")
     return {"name": name, "cell": cell, "config": read("configs", cell["config"] + ".json"),
-            "traffic": read("traffic", cell["traffic"] + ".json")}
+            "traffic": read("traffic", cell["traffic"] + ".json"), "dir": bench_dir}
 
 
 def forbidden_modules() -> List[str]:
@@ -136,6 +142,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     root = os.path.abspath(root)
     cell = cell or load_cell(cell_name)
     config, traffic = cell["config"], cell["traffic"]
+    kind = kinds.load(cell)
     cache = os.path.join(work_dir or os.path.join(root, "benchmark"), ".cache")
     os.environ.setdefault("USE_FLAX", "0")
     os.environ["TORCH_EXTENSIONS_DIR"] = os.path.join(cache, "torch_extensions")
@@ -154,14 +161,14 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     if root not in sys.path:
         sys.path.insert(0, root)
 
-    from . import compare, weights
+    from . import compare, spans, weights
     from threestudio_3dgs_tpu_torch import launch
     from threestudio_3dgs_tpu_torch.ops import native
     from threestudio_3dgs_tpu_torch.trainer import Trainer
     from threestudio_3dgs_tpu_torch.utils.config import load_config
 
     dev = launch.resolve_device(device)
-    wdir, write_s = weights.ensure(cache, config, seed, dev)
+    wdir, write_s = weights.ensure(cache, config, seed, dev, kind.weight_files(config))
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -173,6 +180,9 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         f"seed={seed}", f"exp_root_dir={run_dir}",
         f"system.guidance.pretrained_model_name_or_path={wdir}",
     ]
+    if hasattr(kind, "inputs"):
+        os.makedirs(run_dir)
+        overrides += list(kind.inputs(cell, seed, run_dir))
     cfg = load_config(os.path.join(root, traffic["yaml"]), overrides)
     trainer = Trainer(cfg, device=dev)
     trainer.state = trainer.system.init_state(cfg.seed)
@@ -287,7 +297,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     first = batches[0]
     ctx: Dict[str, Any] = {"cell": cell, "data_ms": data_ms, "flags": _flags(torch),
                            "batch_shape": (int(first["c2w"].shape[0]), int(first["height"]),
-                                           int(first["width"]))}
+                                           int(first["width"])), "batch": first}
     if trace and host["prof"] is not None:
         from . import trace as trace_mod
 
@@ -295,6 +305,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         host["prof"].export_chrome_trace(path)
         ctx["trace"] = trace_mod.read(path)
         os.remove(path)
+        ctx["spans"] = spans.from_profiler(host["prof"])
         ctx["k5_launches"] = {tag: host["k5_end"].get((fn, tag), 0) - host["k5_start"].get((fn, tag), 0)
                               for (fn, tag) in host["k5_end"] if fn == "flash_attention_forward"}
         # the steps after the recorded ones, timed from the profiler's stop

@@ -6,11 +6,13 @@ lists the cell under ``workloads`` (or lists no cells).
 
 The context (``harness.py``): ``cell`` (the cell's, configuration's and
 traffic's files), ``data_ms`` (host ms of each window step's camera
-batch), ``flags`` (TF32 switches), ``card`` (name, highest SM clock, power
-limit), ``trace`` (``trace.summarize`` of the recorded steps),
-``k5_launches`` (K5 launches by shape tag in the recorded steps) and
-``step_s_untraced`` (the traced run's step time after the recorded
-steps)."""
+batch), ``flags`` (TF32 switches), ``batch_shape`` (the first camera
+batch's views, height and width), ``batch`` (the first camera batch, as
+recorded for the reference), ``card`` (name, highest SM clock, power
+limit), ``trace`` (``trace.summarize`` of the recorded steps), ``spans``
+(``spans.from_profiler`` of them, or None), ``k5_launches`` (K5 launches
+by shape tag in the recorded steps) and ``step_s_untraced`` (the traced
+run's step time after the recorded steps)."""
 
 from __future__ import annotations
 

@@ -2,11 +2,9 @@
 read to the host (``fit``'s logged values, the binning's pair total, the
 live-row count; ``utils/tracing.py``)."""
 
-from benchmark import spans
-
 
 def read(ctx):
-    s = spans.from_ctx(ctx)
+    s = ctx.get("spans")
     if not s:
         return None
     n = sum(c for path, c in s["count"].items() if path.endswith("/host_read"))

@@ -1,39 +1,14 @@
 """% of the card's peak in the step's model FLOPs: the least time the
-peaks allow for the UNet's forward on the CFG batch and the VAE encoder's
-forward and its backward to the input (``costs.py``), each FLOP at the
-peak of the unit and type it runs in, over the traced run's step time
-after its recorded steps.  The render's arithmetic is not counted.
+peaks allow for them, as the configuration's kind counts them
+(``model_seconds`` of ``kinds/<kind>.py``), over the traced run's step
+time after its recorded steps."""
 
-bfloat16 configurations: every product at the bf16 peak, but the
-float32 ``conv_out`` / ``quant_conv``.  float32 configurations:
-convolutions at TF32 where cuDNN may use it (PyTorch's default), dense
-layers and attention outside K5 at TF32 or float32 as the matmul switch
-says, K5's long self-attention at the bf16 peak (its split route runs on
-bf16 tensor cores)."""
-
-from benchmark import costs
+from benchmark import kinds
 
 
 def read(ctx):
     step_s = ctx.get("step_s_untraced")
     if not step_s:
         return None
-    cfg = ctx["cell"]["config"]
-    flags = ctx["flags"]
-    conv_peak = costs.PEAK_TF32 if flags["cudnn_tf32"] else costs.PEAK_F32
-    mm_peak = costs.PEAK_TF32 if flags["matmul_tf32"] else costs.PEAK_F32
-    bf16 = cfg["dtype"] == "bfloat16"
-    b, h, _ = ctx["batch_shape"]
-    size = cfg.get("image_size", h)  # the guidance's input size (MVDream resizes to it)
-    unet = costs.unet_flops(cfg["unet"], 2 * b, size // 8, size // 8, 77)
-    fwd = costs.vae_encoder_flops(cfg["vae"], b, size, size)
-    vae = {k: v + costs.vae_backward_to_input(fwd)[k] for k, v in fwd.items()}
-    if bf16:
-        t = (sum(v for k, v in unet.items() if k != "conv_out") + vae["conv"] + vae["dense"]
-             + vae["attn"]) / costs.PEAK_BF16
-        t += (unet["conv_out"] + vae["conv_out"]) / conv_peak
-    else:
-        t = (unet["conv"] + unet["conv_out"] + vae["conv"] + vae["conv_out"]) / conv_peak
-        t += (unet["dense"] + unet["attn_short"] + vae["dense"] + vae["attn"]) / mm_peak
-        t += unet["attn_long"] / costs.PEAK_BF16
+    t = kinds.load(ctx["cell"]).model_seconds(ctx["cell"]["config"], ctx, ctx["flags"])
     return 100.0 * t / step_s

@@ -159,12 +159,14 @@ class TextTo3D:
                                                    device=self.device) * (2.0 / a) ** 0.5
                 state["bg"][f"b{i}"] = torch.zeros(b, device=self.device)
         state["adam"] = {k: (torch.zeros_like(v), torch.zeros_like(v))
-                         for k, v in self._flat(state).items()}
+                         for k, v in self.flat(state).items()}
         state["count"] = 0
         return state
 
     @staticmethod
-    def _flat(state) -> Dict[str, torch.Tensor]:
+    def flat(state) -> Dict[str, torch.Tensor]:
+        """The trained leaves by name: the field's and the background
+        MLP's (``background/<name>``)."""
         return {**state["field"], **{"background/" + k: v for k, v in state["bg"].items()}}
 
     def lrs(self, step: int) -> Dict[str, float]:
@@ -313,7 +315,7 @@ class TextTo3D:
     def step(self, state, batch, step: int, draws: Draws):
         """One training step in place: returns (the total loss, the
         gradients by leaf as Adam takes them)."""
-        flat = {k: v.detach().requires_grad_(True) for k, v in self._flat(state).items()}
+        flat = {k: v.detach().requires_grad_(True) for k, v in self.flat(state).items()}
         field = {k: flat[k] for k in state["field"]}
         bg = {k: flat["background/" + k] for k in state["bg"]}
         total = self.loss(field, bg, batch, step, draws)
@@ -326,7 +328,7 @@ class TextTo3D:
     def adam(self, state, grads, lrs) -> None:
         state["count"] += 1
         t = state["count"]
-        for k, p in self._flat(state).items():
+        for k, p in self.flat(state).items():
             eps = 1e-8 if k.startswith("background/") else 1e-15
             m, v = state["adam"][k]
             m.mul_(0.9).add_(0.1 * grads[k])

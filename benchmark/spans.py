@@ -27,16 +27,15 @@ them open at its middle, or ``outside``.  A program without spans (an
 older checkout) gives None.
 
 The harness of this directory removes its exported trace before the
-readers run, and a profiler exports once; ``from_ctx`` takes the same
-events from the profiler that the harness's ``run`` holds (its local
-``host["prof"]``, whose ``events()`` outlive the export) and keeps the
-reduction in ``ctx["spans"]`` for the other readers."""
+readers run, and a profiler exports once; it reduces the same events,
+which the finished profiler's ``events()`` keep after the export, with
+``from_profiler`` and hands the reduction to the readers as
+``ctx["spans"]``."""
 
 from __future__ import annotations
 
 import bisect
 import json
-import sys
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from benchmark.trace import DEVICE_CATEGORIES, _union
@@ -237,21 +236,10 @@ def under(table: Dict[str, float], names: Sequence[str]) -> float:
 def per_step_ms(ctx: Dict[str, Any], table: str, names: Sequence[str]) -> Optional[float]:
     """ms a recorded step of ``table`` under ``names``, or None without a
     reduction with device events."""
-    s = from_ctx(ctx)
+    s = ctx.get("spans")
     if not s or not s["device_s"]:
         return None
     return under(s[table], names) / s["steps"] * 1e3
-
-
-def _harness_profiler():
-    """The finished profiler of the harness's ``run`` on the stack, if any."""
-    frame = sys._getframe(1)
-    while frame is not None:
-        host = frame.f_locals.get("host")
-        if isinstance(host, dict) and host.get("prof") is not None:
-            return host["prof"]
-        frame = frame.f_back
-    return None
 
 
 def _name(e) -> str:
@@ -302,16 +290,11 @@ def profiler_events(prof, names: Sequence[str] = ()) -> List[Dict[str, Any]]:
     return out
 
 
-def from_ctx(ctx: Dict[str, Any]) -> Optional[Dict[str, Any]]:
-    """``ctx["spans"]``, reduced once a run from the events of the
-    harness's profiler."""
-    if "spans" not in ctx:
-        ctx["spans"] = None
-        prof = _harness_profiler() if ctx.get("trace") else None
-        if prof is not None:
-            names = program_spans()
-            ctx["spans"] = reduce(profiler_events(prof, names), names)
-    return ctx["spans"]
+def from_profiler(prof) -> Optional[Dict[str, Any]]:
+    """The reduction of a finished profiler's recorded window by the
+    program's spans, or None."""
+    names = program_spans()
+    return reduce(profiler_events(prof, names), names)
 
 
 def table(summary: Dict[str, Any]) -> List[List[Any]]:

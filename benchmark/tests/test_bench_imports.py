@@ -1,11 +1,14 @@
 """Nothing a benchmark run imports is JAX, jaxlib, Flax or the JAX package
 (top-level module names compared whole: the port's name begins with the
-JAX package's), and the reference imports nothing of the port."""
+JAX package's), and the reference and the kind modules import nothing of
+the port."""
 
 import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 import tiny
 
@@ -34,8 +37,10 @@ def test_no_source_imports_jax():
         assert not set(_imports(path)) & FORBIDDEN, path
 
 
-def test_reference_imports_nothing_of_the_program():
-    for path in _sources("reference"):
+@pytest.mark.parametrize("sub", ["reference", "kinds"])
+def test_reference_imports_nothing_of_the_program(sub):
+    """The reference and the kind modules that hold its steps."""
+    for path in _sources(sub):
         assert "threestudio_3dgs_tpu_torch" not in set(_imports(path)), path
 
 

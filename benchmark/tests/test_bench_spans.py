@@ -157,9 +157,10 @@ def as_profiler_events(events, newer):
 
 @pytest.mark.parametrize("newer", [True, False])
 def test_readers_take_the_harness_profilers_events(newer):
-    """Without ``ctx["spans"]``, the readers reduce the events of the
-    profiler that the caller's frame holds as ``host["prof"]`` (a
-    profiler's one chrome export is spent by the harness)."""
+    """The readers take the reduction of the events of the harness's
+    finished profiler (``spans.from_profiler``; a profiler's one chrome
+    export is spent by the harness), handed to them as ``ctx["spans"]``,
+    and nothing else: not a profiler that a caller's frame holds."""
 
     class Prof:
         calls = 0
@@ -168,13 +169,12 @@ def test_readers_take_the_harness_profilers_events(newer):
             Prof.calls += 1
             return as_profiler_events(EVENTS, newer)
 
-    def run():
-        host = {"prof": Prof()}  # noqa: F841  (what the harness's run holds)
-        c = {"trace": {"steps": 2}}
-        return [metrics.reader(n)(c) for n in ("render_ms", "guidance_ms", "update_ms",
-                                                "step_idle_ms", "host_reads")]
-
-    assert run() == [pytest.approx(v) for v in (0.06, 0.07, 0.04, 0.625, 1.5)]
+    names = ("render_ms", "guidance_ms", "update_ms", "step_idle_ms", "host_reads")
+    host = {"prof": Prof()}  # what the harness's run holds
+    assert [metrics.reader(n)({"trace": {"steps": 2}}) for n in names] == [None] * len(names)
+    c = {"trace": {"steps": 2}, "spans": spans.from_profiler(host["prof"])}
+    assert [metrics.reader(n)(c) for n in names] == [pytest.approx(v) for v in
+                                                     (0.06, 0.07, 0.04, 0.625, 1.5)]
     assert Prof.calls == 1
 
 
