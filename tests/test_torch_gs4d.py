@@ -427,3 +427,35 @@ def test_zero123_checkpoint_that_does_not_load_raises(tmp_path):
         with pytest.raises(Exception):
             g.prepare_embeddings(frames)
         assert g.denoiser is None
+
+
+@pytest.mark.parametrize("lacking", ["unet", "vae", "image_encoder"])
+def test_zero123_directory_without_a_sub_model_raises(tmp_path, lacking):
+    """A weight directory that exists but lacks ``unet/`` or ``vae/``
+    weights or ``image_encoder/`` raises from prepare_embeddings, naming
+    what is missing, before it reads any weights: it never leaves the
+    guidance on its analytic prior."""
+    for sub, name in (("unet", "diffusion_pytorch_model.bin"),
+                      ("vae", "diffusion_pytorch_model.bin"),
+                      ("image_encoder", "pytorch_model.bin")):
+        if sub != lacking:
+            os.makedirs(tmp_path / sub)
+            (tmp_path / sub / name).write_bytes(b"never read")
+    g = pfind("temporal-stable-zero123-guidance")(
+        {"pretrained_model_name_or_path": str(tmp_path)}, device="cpu")
+    with pytest.raises(FileNotFoundError, match=lacking + "/"):
+        g.prepare_embeddings(np.full((2, 32, 32, 3), 0.5, np.float32))
+    assert g.denoiser is None and g.unet is None
+
+
+def test_zero123_path_that_does_not_exist_keeps_the_prior(tmp_path):
+    """A weight path that does not exist (the YAMLs' default checkpoint in
+    a checkout without ``load/``) keeps the analytic prior, as in the JAX
+    package: its targets are the frames' mean colours."""
+    frames = np.stack([np.full((32, 32, 3), v, np.float32) for v in (0.25, 0.75)])
+    for path in (tmp_path / "absent", tmp_path / "absent.ckpt"):
+        g = pfind("temporal-stable-zero123-guidance")(
+            {"pretrained_model_name_or_path": str(path), "num_frames": 2}, device="cpu")
+        g.prepare_embeddings(frames)
+        assert g.denoiser is None and g.unet is None
+        np.testing.assert_allclose(g.cond_targets.numpy(), [[0.25] * 3, [0.75] * 3])

@@ -1,10 +1,12 @@
 """The port's spans (``utils/tracing.py``) on the CPU: a tiny ``fit`` under
 a CPU ``torch.profiler`` emits every span of the training step, nested as
 the module says, for each kind of system step (the base step, the
-camera-sharded one, the zero123, 4D and SuGaR family); one ``*/host_read``
-span for each device value the step reads to the host; the rasterizer's
-hand backward on the thread that runs autograd's nodes; and no
-``record_function`` when no profiler records."""
+camera-sharded one, the zero123, 4D and SuGaR family); the spans inside
+the guidance's models (the SD and the 4D step on tiny real weights), the
+spacetime renderer's one timed evaluation a view and the 4D step's motion
+regularisers; one ``*/host_read`` span for each device value the step
+reads to the host; the rasterizer's hand backward on the thread that runs
+autograd's nodes; and no ``record_function`` when no profiler records."""
 
 import json
 import os
@@ -53,9 +55,16 @@ PARENTS = {
     "render/backward": {"system/backward"},
     "system/backward": {"fit/train_step"}, "system/host_read": {"system/loss", "system/densify"},
     "system/update": {"fit/train_step"}, "system/densify": {"fit/train_step"},
+    "render/timed": {"system/render"}, "guidance/unet": {"system/guidance"},
+    "guidance/encode": {"system/guidance"}, "system/motion_reg": {"system/loss"},
 }
-# the spans a kind of step has no occasion to open
-ABSENT = {"sugar": {"system/host_read"}}  # SuGaR's losses read no live-row count
+# the spans a kind of step has no occasion to open: the steps here guide
+# with the fake or analytic guidances (no UNet, no encode), and only the 4D
+# step renders a timed field and has motion regularisers
+NO_MODELS = {"guidance/unet", "guidance/encode"}
+STATIC = NO_MODELS | {"render/timed", "system/motion_reg"}
+ABSENT = {"base": STATIC, "camera_sharded": STATIC, "zero123": STATIC, "gs4d": NO_MODELS,
+          "sugar": STATIC | {"system/host_read"}}  # SuGaR's losses read no live-row count
 READS = {"item", "__int__", "__float__", "__bool__", "__index__", "__format__", "tolist",
          "numpy", "__array__", "cpu"}
 HOST_MADE = {"tensor", "as_tensor", "from_numpy"}
@@ -147,6 +156,74 @@ def test_every_step_opens_the_spans_nested(kind, tmp_path):
     assert set(tracing.SPANS) - ABSENT.get(kind, set()) <= seen, sorted(set(tracing.SPANS) - seen)
     for name, parent, *_ in spans:
         assert parent in PARENTS[name], (name, parent)
+
+
+def spans_by_step(spans):
+    """Each ``fit/train_step`` span's program spans: [{name: [parent, ...]}]."""
+    steps = [(ts, end) for name, _, _, ts, end in spans if name == "fit/train_step"]
+    out = []
+    for t0, t1 in steps:
+        inside = {}
+        for name, parent, _, ts, _ in spans:
+            if t0 < ts < t1:
+                inside.setdefault(name, []).append(parent)
+        out.append(inside)
+    return out
+
+
+def test_4d_step_opens_timed_guidance_and_motion_spans(tmp_path):
+    """gs4d_motion on a tiny Stable Zero123 checkpoint: each step opens one
+    ``render/timed`` a rendered view (3 frames, one random view a frame,
+    and the 3 reference views) inside ``system/render``, the UNet's and the
+    renders' encode once inside ``system/guidance``, and the motion
+    regularisers once inside ``system/loss``."""
+    from test_torch_zero123 import CLIP_DIM, TINY_UNET, TINY_VAE
+
+    from threestudio_3dgs_tpu_torch.diffusion import convert
+
+    ckpt = tmp_path / "z123" / "tiny.ckpt"
+    os.makedirs(ckpt.parent)
+    convert.write_random_ldm_checkpoint(str(ckpt), TINY_UNET, TINY_VAE, clip_dim=CLIP_DIM,
+                                        seed=3, device="cpu")
+    overrides = STEPS["gs4d"][1] + [
+        "trainer.val_check_interval=0",
+        f"system.guidance_zero123.pretrained_model_name_or_path={ckpt}",
+        "system.guidance_zero123.half_precision_weights=false",
+        "system.guidance_zero123.cond_image_size=32"]
+    spans, _, _ = traced_fit(STEPS["gs4d"][0], overrides, tmp_path)
+    steps = spans_by_step(spans)
+    assert len(steps) == 2
+    for inside in steps:
+        assert inside["render/timed"] == ["system/render"] * (3 + 3)
+        assert inside["guidance/unet"] == ["system/guidance"]
+        assert inside["guidance/encode"] == ["system/guidance"]
+        assert inside["system/motion_reg"] == ["system/loss"]
+
+
+def test_sd_step_opens_unet_and_encode_under_guidance(tmp_path):
+    """The base step on tiny SD weights (a UNet and a VAE encoder): the
+    UNet's CFG call and the renders' encode open ``guidance/unet`` and
+    ``guidance/encode`` once a step inside ``system/guidance``; the static
+    renderer opens no ``render/timed``."""
+    from threestudio_3dgs_tpu_torch.diffusion import convert, unet, vae
+
+    ucfg = unet.UNet2DConditionConfig(
+        block_out_channels=(32, 64), attention_head_dim=(2, 4), norm_groups=8,
+        down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+        up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"))
+    vcfg = vae.AutoencoderKLConfig(block_out_channels=(16, 32), norm_groups=8)
+    convert.write_random_checkpoint(str(tmp_path / "sd"), ucfg, vcfg, device="cpu")
+    overrides = [o for o in OVERRIDES if not o.startswith("system.guidance")] + [
+        "system.guidance_type=stable-diffusion-guidance",
+        f"system.guidance.pretrained_model_name_or_path={tmp_path / 'sd'}",
+        "system.guidance.half_precision_weights=false"]
+    spans, _, _ = traced_fit(config("gaussian_splatting"), overrides, tmp_path)
+    steps = spans_by_step(spans)
+    assert len(steps) == 2
+    for inside in steps:
+        assert inside["guidance/unet"] == ["system/guidance"]
+        assert inside["guidance/encode"] == ["system/guidance"]
+        assert "render/timed" not in inside and "system/motion_reg" not in inside
 
 
 @pytest.mark.parametrize("batched", [False, True])

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import attention as _attention
+from ..utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -373,6 +374,11 @@ class UNet2DCondition(nn.Module):
         self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1, compute_dtype=torch.float32)
 
     def forward(self, x, t, context, camera=None):
+        """The call, inside the ``guidance/unet`` span."""
+        with span("guidance/unet"):
+            return self._forward(x, t, context, camera)
+
+    def _forward(self, x, t, context, camera):
         cfg = self.cfg
         dt = cfg.dtype
         temb = self.time_embedding(timestep_embedding(t, cfg.block_out_channels[0], cfg.freq_shift))

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.tracing import span
 from .unet import Conv2d, GroupNorm, Linear, ResnetBlock, UNetBlock, Upsample
 
 
@@ -157,7 +158,9 @@ class VAEEncoder(nn.Module):
                                  compute_dtype=torch.float32)
 
     def forward(self, x):
-        return self.quant_conv(self.encoder(x.to(self.cfg.dtype)).float())
+        """The encode, inside the ``guidance/encode`` span."""
+        with span("guidance/encode"):
+            return self.quant_conv(self.encoder(x.to(self.cfg.dtype)).float())
 
 
 class VAEDecoder(nn.Module):

@@ -35,10 +35,12 @@ JAX package's stand-in embeddings, ``np.random.default_rng(0)`` normals x
 
 Deliberate differences: where ``image_encoder/`` exists but does not
 load, the port raises (the JAX package falls back on any exception), as
-the port's CLIP text encoder does; without the directory both behave
-alike.  A checkpoint file that loads but holds no ldm UNet raises too (the
-JAX package takes its analytic prior): a run never trains against the
-prior when it was given a checkpoint."""
+the port's CLIP text encoder does.  A weight directory without ``unet/``
+or ``vae/`` weights or without ``image_encoder/`` raises, naming what is
+missing, and so does a checkpoint file that loads but holds no ldm UNet
+(the JAX package takes its analytic prior in both cases): a run never
+trains against the prior when it was given weights.  A path that does
+not exist keeps the prior in both packages."""
 
 from __future__ import annotations
 
@@ -144,18 +146,22 @@ class _TemporalZero123Base(BaseGuidance):
             self._try_load_ldm_ckpt(path, frames)
 
     def _try_load_local(self, path: str, frames: np.ndarray) -> None:
-        """A diffusers-layout directory; nothing is built without ``unet/``
-        and ``vae/`` weights or without ``image_encoder/``."""
+        """A diffusers-layout directory: ``unet/`` and ``vae/`` weights and
+        ``image_encoder/`` (``clip_camera_projection/`` optional).  A
+        directory that lacks any of the three raises, naming what is
+        missing: it would leave the guidance on its analytic prior."""
         from ..diffusion.convert import load_torch_state_dict
         from ..diffusion.vae import vae_half
 
         unet_file, vae_file = _find_weights(path, "unet"), _find_weights(path, "vae")
-        if unet_file is None or vae_file is None:
-            return
-        clip_embs = _clip_image_embeddings(os.path.join(path, "image_encoder"), frames,
-                                           self.device)
-        if clip_embs is None:
-            return
+        clip_dir = os.path.join(path, "image_encoder")
+        missing = [name for name, ok in (("unet/ weights", unet_file is not None),
+                                         ("vae/ weights", vae_file is not None),
+                                         ("image_encoder/", os.path.isdir(clip_dir))) if not ok]
+        if missing:
+            raise FileNotFoundError(f"{path}: a Zero123 weight directory without "
+                                    f"{', '.join(missing)}")
+        clip_embs = _clip_image_embeddings(clip_dir, frames, self.device)
         cc_w = cc_b = None
         ccp_file = _find_weights(path, "clip_camera_projection")
         if ccp_file is not None:

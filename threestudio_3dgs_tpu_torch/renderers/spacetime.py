@@ -6,9 +6,10 @@ index (polynomial, per-frame, deformation or spline motion; see
 ``models/spacetime.py``) and rasterizes the precomputed colours SH2RGB(f_dc)
 with depth and the alpha mask.  A view without a timestamp renders at t = 0,
 frame 0.  In spline mode the knots are computed once per batch (they do not
-depend on the view).  The batch renders view by view or, under the
-Gaussian renderers' gate, in one pass of the rasterizer with each view's
-timed attributes stacked to (B, N, ...)."""
+depend on the view).  Each view's evaluation, and a batch's knots, runs in
+a ``render/timed`` span, so a trace counts the evaluations.  The batch
+renders view by view or, under the Gaussian renderers' gate, in one pass of
+the rasterizer with each view's timed attributes stacked to (B, N, ...)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from ..ops import camera as cam_ops
 from ..ops.rasterizer import RasterizeConfig, rasterize
 from ..utils.registry import register
+from ..utils.tracing import span
 from .gaussian import GaussianRendererBase
 
 
@@ -30,19 +32,26 @@ class DiffGaussianRasterizerSpacetime(GaussianRendererBase):
 
     def batch_forward(self, gauss, batch: Dict[str, Any], *, deformation_params=None,
                       knots=None, **kwargs) -> Dict[str, Any]:
-        if knots is None:
-            knots = self.geometry.control_knots(gauss, deformation_params)
+        if knots is None and self.geometry.cfg.use_spline:
+            with span("render/timed"):
+                knots = self.geometry.control_knots(gauss, deformation_params)
         return super().batch_forward(gauss, batch, deformation_params=deformation_params,
                                      knots=knots, **kwargs)
+
+    def _timed(self, gauss, timestamp, frame_idx, deformation_params, knots):
+        """The field's activated attributes at the view's time (t = 0,
+        frame 0 where it has none), in a ``render/timed`` span."""
+        with span("render/timed"):
+            return self.geometry.get_timed_all(
+                gauss, 0.0 if timestamp is None else timestamp,
+                0 if frame_idx is None else frame_idx, deformation_params, knots)
 
     def _batched_attrs(self, gauss, times, color_clip, override_color, deformation_params,
                        knots) -> Dict[str, Any]:
         """Each view's timed attributes (one ``get_timed_all`` a view at
         its timestamp and frame index) stacked to (B, N, ...)."""
-        timed = [self.geometry.get_timed_all(
-            gauss, 0.0 if t["timestamp"] is None else t["timestamp"],
-            0 if t["frame_idx"] is None else t["frame_idx"], deformation_params, knots)
-            for t in times]
+        timed = [self._timed(gauss, t["timestamp"], t["frame_idx"], deformation_params, knots)
+                 for t in times]
         means3d, scales, rotations, opacity, colors = (list(a) for a in zip(*timed))
         if override_color is not None:
             colors = [override_color] * len(times)
@@ -77,9 +86,8 @@ class DiffGaussianRasterizerSpacetime(GaussianRendererBase):
         for."""
         device = gauss.params.xyz.device
         kernel_bg = self._kernel_bg(generator, training, device, draws)
-        means3d, scales, rotations, opacity, colors = self.geometry.get_timed_all(
-            gauss, 0.0 if timestamp is None else timestamp, 0 if frame_idx is None else frame_idx,
-            deformation_params, knots)
+        means3d, scales, rotations, opacity, colors = self._timed(
+            gauss, timestamp, frame_idx, deformation_params, knots)
         if override_color is not None:
             colors = override_color
         out = rasterize(

@@ -15,7 +15,8 @@
         reference-camera renders;
       - the regularisers: ``lambda_ref_gs`` anchors the first sampled
         frame's positions to the canonical cloud, and the lite ARAP holds
-        the positions at a random time to those at that frame.
+        the positions at a random time to those at that frame (these and
+        the inter-frame substep in the ``system/motion_reg`` span).
 The lite ARAP's k-NN table of the live rows (self excluded) is refreshed on
 the host every ``freq.update_arap`` steps.  With a deformation network its
 parameters are ``extra_params["deformation"]``, trained by the extra Adam.
@@ -40,6 +41,7 @@ from ..ops.arap import arap_energy_knn
 from ..utils.draws import uniforms
 from ..utils.loss import psnr
 from ..utils.registry import find, register
+from ..utils.tracing import span
 from .base import SystemState, flatten_extra
 from .gaussian_zero123 import Zero123System, Zero123SystemConfig
 from .sugar_static import GaussianStageRegMixin, alive_knn, build_guidance_2d
@@ -234,11 +236,12 @@ class Gaussian4DGenSystem(GaussianStageRegMixin, Zero123System):
             total = total + loss_ref
             outs.append(out_ref)
         if self.cfg.stage == "motion":
-            if self._extra_sig(step)[0]:
-                total = total + self._inter_frame_losses(gs, extra_params, batch, sched,
-                                                         generator, logs, draws)
-            total = total + self._motion_regularizers(gs, extra_params, batch, sched, generator,
-                                                      logs, draws)
+            with span("system/motion_reg"):
+                if self._extra_sig(step)[0]:
+                    total = total + self._inter_frame_losses(gs, extra_params, batch, sched,
+                                                             generator, logs, draws)
+                total = total + self._motion_regularizers(gs, extra_params, batch, sched,
+                                                          generator, logs, draws)
         logs["train/loss_total"] = total
         logs["gauss_num"] = gs.n_alive
         return total, logs, outs, vs_dummy

@@ -25,6 +25,16 @@ The spans, by where they are opened:
                             densify statistics, the pair-capacity
                             controller, the structural update)
   ``BaseGuidance``          system/guidance (a call: UNet, VAE encode, SDS)
+  ``diffusion/unet.py``     guidance/unet (a call of ``UNet2DCondition``: the
+                            SD, MVDream and Zero123 denoisers' CFG batch)
+  ``diffusion/vae.py``      guidance/encode (a call of ``VAEEncoder``: the
+                            renders' encode, whose backward the profiler
+                            links to it)
+  ``renderers/spacetime``   render/timed (each view's timed evaluation of
+                            the spacetime field, and the spline's knots of
+                            a batch: one span an evaluation)
+  ``systems/gaussian_4dgen`` system/motion_reg (the motion stage's anchor,
+                            lite ARAP and inter-frame losses)
   ``ops/rasterizer``        render/backward (the hand backward of the blend
                             and the pair gather, on autograd's thread),
                             render/host_read (the binning's pair total)
@@ -41,6 +51,7 @@ SPANS = (
     "fit/data", "data/rays", "fit/train_step", "fit/host_read", "fit/log", "fit/validate",
     "fit/checkpoint", "system/loss", "system/render", "render/backward", "render/host_read",
     "system/guidance", "system/backward", "system/host_read", "system/update", "system/densify",
+    "render/timed", "guidance/unet", "guidance/encode", "system/motion_reg",
 )
 _NO_SPAN = contextlib.nullcontext()
 
