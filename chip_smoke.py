@@ -281,6 +281,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -448,6 +449,15 @@ KERNELS = {
     "expand_slots": dict(
         source="threestudio_3dgs_tpu_torch/csrc/expand.cu",
         replaces="threestudio_3dgs_tpu/ops/rasterizer/expand_pallas.py:379",
+    ),
+    # K7: no TPU kernel, the JAX package autodiffs the projection
+    "project_fwd": dict(
+        source="threestudio_3dgs_tpu_torch/csrc/project.cu",
+        replaces="none",
+    ),
+    "project_bwd": dict(
+        source="threestudio_3dgs_tpu_torch/csrc/project.cu",
+        replaces="none",
     ),
 }
 # K5 checks (bh, n, d, dtype name, keys in rising norm): the UNet's two
@@ -758,6 +768,52 @@ def time_kernels(torch, inp, label):
     return rows
 
 
+def check_project(torch, native):
+    """K7 against its plain twins at the cells' shapes
+    (``profiling.PROJECT_SHAPES``: gs4d, sd, mv), with a means2d offset:
+    the integer outputs, counts and sort keys bit for bit, the floats within
+    1e-6 of each column's largest, the gradients within 1e-5 of each one's
+    largest, exactly zero on the dead rows and finite; one launch each way.
+    Returns {case: {kernel: error}}."""
+    from threestudio_3dgs_tpu_torch.utils.profiling import PROJECT_SHAPES, project_vs_twin
+
+    errs = {}
+    for case, (rows, live, b, size) in PROJECT_SHAPES.items():
+        label = f"k7_{case}"
+        native.reset_launches()
+        got = project_vs_twin("cuda", case, seed=rows + b)
+        report(label, "project_fwd", got["exact"], 0,
+               "integers, counts, sort keys: elements that differ")
+        report(label, "project_fwd", got["floats"], 1e-6,
+               "per column, max|diff| / max|plain| (relative)")
+        report(label, "project_bwd", got["grads"], 1e-5, "max|diff| / max|plain| (relative)")
+        report(label, "project_bwd", got["dead"] + got["nonfinite"], 0,
+               "nonzero gradients of dead rows + non-finite gradients")
+        launches = {k: native.LAUNCHES[k] for k in ("project_fwd", "project_bwd")}
+        if launches != {"project_fwd": 1, "project_bwd": 1}:
+            fail(f"{label}: K7 launches {launches}, want one each way")
+        log(f"K7 {case}: {rows} rows, {live} alive, {b} x {size}^2: {got['visible']} visible, "
+            f"{got['masked']} with a mask, {got['pairs']} pairs")
+        errs[case] = {"project_fwd": got["floats"], "project_bwd": got["grads"]}
+    return errs
+
+
+def time_project():
+    """K7's wrapper and device times at the cells' shapes, beside the plain
+    twin's and the bound by bytes (``kernel_timing.project_rows``).
+    Returns {case: {kernel: timing row}}."""
+    from threestudio_3dgs_tpu_torch.utils.kernel_timing import project_rows
+
+    rows = {}
+    for tag, r in project_rows(20).items():
+        kernel, case = tag.split("@")
+        rows.setdefault(case, {})[kernel] = dict(
+            ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+            bound=(r["bound_ms"], "bytes"), library_ms=None, library_device_ms=None)
+        log_time(tag, rows[case][kernel], "")
+    return rows
+
+
 def bench_render(torch, scene, native):
     """Forward+backward rasterize of the scene, as bench.py measures it."""
     from threestudio_3dgs_tpu_torch.utils.profiling import render_step
@@ -791,7 +847,7 @@ def bench_render(torch, scene, native):
 
 def train(torch, native):
     from threestudio_3dgs_tpu_torch import launch
-    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+    from threestudio_3dgs_tpu_torch.utils.profiling import PROJECT_KERNELS, RASTER_KERNELS
 
     argv = [
         "--config", PORT_CONFIG, "--train",
@@ -813,7 +869,7 @@ def train(torch, native):
         bad = [k for k, v in row.items() if k.startswith("train/") and not np.isfinite(v)]
         if bad:
             fail(f"non-finite losses at step {row['step']}: {bad}")
-    missing = [k for k in RASTER_KERNELS if launches[k] == 0]
+    missing = [k for k in RASTER_KERNELS + PROJECT_KERNELS if launches[k] == 0]
     if missing:
         fail(f"kernels never launched by the training run: {missing}")
     gauss = trainer.state.gauss
@@ -1473,7 +1529,8 @@ def train_dp(torch, native):
 
 
 # the spans the --profile trace of the step must hold
-PROFILE_SPANS = ("fit/train_step", "system/render", "system/guidance", "system/backward")
+PROFILE_SPANS = ("fit/train_step", "system/render", "system/guidance", "system/backward",
+                 "render/project")
 
 
 def profile_run(card):
@@ -1485,7 +1542,7 @@ def profile_run(card):
 
     from benchmark import spans
     from threestudio_3dgs_tpu_torch.utils.profiling import (
-        RASTER_SYMBOLS, TRACE_ACTIVE, TRACE_STEPS, read_trace)
+        FAMILIES, PROJECT_SYMBOLS, RASTER_SYMBOLS, TRACE_ACTIVE, TRACE_STEPS, read_trace)
     from threestudio_3dgs_tpu_torch.utils.tracing import SPANS
 
     run_dir = os.path.join(RUN_DIR, "profile")
@@ -1507,12 +1564,13 @@ def profile_run(card):
     steps = trace["steps"]
     if not 0 < len(steps) <= TRACE_ACTIVE:
         fail(f"profile: the trace records profiler steps {steps}, want 1 to {TRACE_ACTIVE}")
+    symbols = {**RASTER_SYMBOLS, **PROJECT_SYMBOLS}
     events = {k: sum(1 for e in trace["events"] if e.get("cat") == "kernel"
-                     and sym in str(e.get("name", ""))) for k, sym in RASTER_SYMBOLS.items()}
+                     and sym in str(e.get("name", ""))) for k, sym in symbols.items()}
     missing = [k for k, n in events.items() if n == 0]
     if missing:
         fail(f"profile: the trace has no kernel event of {missing} "
-             f"(symbols {[RASTER_SYMBOLS[k] for k in missing]}); events by kernel {events}")
+             f"(symbols {[symbols[k] for k in missing]}); events by kernel {events}")
     reduced = spans.reduce(trace["events"], SPANS)
     names = {n for path in (reduced or {}).get("count", {}) for n in path.split(spans.SEP)}
     missing = [n for n in PROFILE_SPANS if n not in names]
@@ -1521,12 +1579,17 @@ def profile_run(card):
     log(f"profile: launch --train --profile, {TRACE_STEPS} steps of gaussian_splatting.yaml "
         f"(fake SDS, 4 x 512^2) + 2 test renders: exit 0 in {wall:.1f} s wall incl. start-up; "
         f"trace {os.path.relpath(trace['path'], ROOT)} ({os.path.getsize(trace['path'])} bytes, "
-        f"{len(trace['events'])} events), profiler steps {steps}; K1-K4 kernel events {events}")
+        f"{len(trace['events'])} events), profiler steps {steps}; K1-K4, K7 kernel events {events}")
     n = reduced["steps"]
+    families = {}  # the hand kernels' device ms a step
+    for name, us in trace["kernels"].items():
+        fam = next((f for f, pat in FAMILIES if re.search(pat, name)), None)
+        if fam:
+            families[fam] = round(families.get(fam, 0.0) + us / 1e3 / n, 4)
     log(f"profile on {card}: {reduced['wall_s'] / n * 1e3:.2f} ms a traced step (host clock of "
         f"the ProfilerStep spans), device {reduced['busy_s'] / n * 1e3:.3f} ms busy "
-        f"({100 * reduced['busy_s'] / reduced['wall_s']:.1f}%); by span, ms a step: path, "
-        "device, host self, idle, count " + json.dumps(
+        f"({100 * reduced['busy_s'] / reduced['wall_s']:.1f}%); hand kernels' device ms a "
+        f"step {families}; by span, ms a step: path, device, host self, idle, count " + json.dumps(
             [[p] + [round(v, 4) for v in rest] for p, *rest in spans.table(reduced)]))
 
 
@@ -1603,7 +1666,7 @@ def train_lit(torch, native, name, config, extra, k5_shapes=(), steps=LIT_STEPS)
     from threestudio_3dgs_tpu_torch import launch
     from threestudio_3dgs_tpu_torch.ops.flash_attention import shape_tag
     from threestudio_3dgs_tpu_torch.systems.base import flatten_extra
-    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+    from threestudio_3dgs_tpu_torch.utils.profiling import PROJECT_KERNELS, RASTER_KERNELS
 
     argv = ["--config", config, "--train", f"trainer.max_steps={steps}",
             "trainer.val_check_interval=0", "data.n_test_views=8",
@@ -1626,7 +1689,7 @@ def train_lit(torch, native, name, config, extra, k5_shapes=(), steps=LIT_STEPS)
         bad = [k for k, v in row.items() if k.startswith("train/") and not np.isfinite(v)]
         if bad or not row["train/grad_norm"] > 0:
             fail(f"{name} step {row['step']}: non-finite {bad}, grad_norm {row['train/grad_norm']}")
-    missing = [k for k in RASTER_KERNELS if launches[k] == 0]
+    missing = [k for k in RASTER_KERNELS + PROJECT_KERNELS if launches[k] == 0]
     if missing:
         fail(f"{name}: kernels never launched: {missing}")
     want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * steps for shape in k5_shapes}
@@ -2123,7 +2186,7 @@ def train_gs4d(torch, native, ckpt):
     from threestudio_3dgs_tpu_torch.models.spacetime import TEMPORAL_FIELDS
     from threestudio_3dgs_tpu_torch.ops.flash_attention import shape_tag
     from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
-    from threestudio_3dgs_tpu_torch.utils.profiling import RASTER_KERNELS
+    from threestudio_3dgs_tpu_torch.utils.profiling import PROJECT_KERNELS, RASTER_KERNELS
 
     motion = ["data.resolution_milestones=[5]", "system.loss.lambda_lite_arap_reg=[3,0,1000.,4]",
               "system.freq.update_arap=4", "data.random_camera.n_test_views=8",
@@ -2151,7 +2214,7 @@ def train_gs4d(torch, native, ckpt):
     guidance = trainer.system.guidance
     if guidance.unet is None or guidance.unet.cfg.dtype != torch.bfloat16:
         fail("train_gs4d: attach_video_frames did not build the bf16 Zero123 denoiser")
-    missing = [k for k in RASTER_KERNELS if launches[k] == 0]
+    missing = [k for k in RASTER_KERNELS + PROJECT_KERNELS if launches[k] == 0]
     want = {shape_tag(*shape): K5_PER_SHAPE_PER_UNET_CALL * GS4D_STEPS
             for shape in K5_GS4D_SHAPES}
     if missing or shape_launches != want or launches["flash_attention_forward"] != sum(
@@ -2813,7 +2876,8 @@ def main():
     from threestudio_3dgs_tpu_torch.ops import camera as cam_mod
     from threestudio_3dgs_tpu_torch.ops import native
     from threestudio_3dgs_tpu_torch.utils.kernel_timing import view_inputs
-    from threestudio_3dgs_tpu_torch.utils.profiling import bench_scene
+    from threestudio_3dgs_tpu_torch.utils.profiling import (
+        PROJECT_KERNELS, RASTER_KERNELS, bench_scene)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2852,11 +2916,14 @@ def main():
     for label, inputs in (("bench", slot_inputs(bench_inp)), ("wide", wide_slot_inputs(torch))):
         err, launches = check_slots(torch, native, *inputs, label)
         k6_err, k6_launches = max(k6_err, err), k6_launches + launches
+    k7_errs = check_project(torch, native)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     log("bench-scene timing:")
     time_kernels(torch, bench_inp, "bench")
     k6_time = time_slots(torch, bench_inp)
+    log("K7 timing at the cells' shapes (these go in the kernels line):")
+    k7_times = time_project()
     del bench_inp
     bench_render(torch, bench, native)
     del bench
@@ -2992,7 +3059,7 @@ def main():
     # (row name, kernel, launches, max abs error, timings): K1-K4 at the
     # trained view, the MVDream view, the zero123 ref view and the 4D
     # reference-frame view, K5 once per main-path shape
-    raster = [name for name in KERNELS if name not in ("flash_attention_forward", "expand_slots")]
+    raster = list(RASTER_KERNELS)
     rows = [(name, name, train_launches[name], max(e[name] for e in errs.values()), timing[name])
             for name in raster]
     rows += [(f"{name}@train_stacked", name, train_stacked[name], train_stk_errs[name],
@@ -3041,6 +3108,11 @@ def main():
     # K6 is on no training path: its launches are its checks', its time the
     # bench scene's
     rows.append(("expand_slots", "expand_slots", k6_launches, k6_err, k6_time))
+    # K7 at the cells' shapes, its launches from the training run of each
+    # cell's YAML: gs4d_motion, gaussian_splatting (SD's 4 x 512^2) and MVDream
+    k7_launches = {"gs4d": gs4d_launches, "sd": train_launches, "mv": mv_launches}
+    rows += [(f"{name}@{case}", name, k7_launches[case][name], k7_errs[case][name],
+              k7_times[case][name]) for case in k7_errs for name in PROJECT_KERNELS]
     kernels = []
     for row_name, name, launches, err, t in rows:
         kernels.append({

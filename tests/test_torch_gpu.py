@@ -24,8 +24,8 @@ from threestudio_3dgs_tpu_torch.ops.rasterizer import RasterizeConfig, rasterize
 from threestudio_3dgs_tpu_torch.ops.rasterizer import binning, blend, expand, segsum
 from threestudio_3dgs_tpu_torch.ops.rasterizer.preprocess import project_gaussians
 from threestudio_3dgs_tpu_torch.utils.profiling import (
-    RASTER_KERNELS, TINY_SD_K5_LAUNCHES, TINY_ZERO123_K5_LAUNCHES, k5_float64, k5_inputs,
-    k5_tolerance, lookat_c2w, tiny_zero123_card_vs_cpu,
+    PROJECT_SHAPES, RASTER_KERNELS, TINY_SD_K5_LAUNCHES, TINY_ZERO123_K5_LAUNCHES, k5_float64,
+    k5_inputs, k5_tolerance, lookat_c2w, project_scene, project_vs_twin, tiny_zero123_card_vs_cpu,
     tiny_sd_card_vs_cpu)
 
 pytestmark = pytest.mark.gpu
@@ -1034,6 +1034,24 @@ def test_gs4d_steps_on_card_match_cpu(cuda, tmp_path):
         assert float((diff <= 0.02 * lrs[k]).float().mean()) >= 0.99, k
 
 
+def render_tags(trainer, channels, views):
+    """The shape tags a run's renders give: K1/K2 at ``channels``; K7 at
+    the field's rows, a render of one view (the loop) or of ``views``
+    stacked (the single pass), forward in every render and backward in the
+    training ones, as the renderer's ``path_counts`` say they ran."""
+    gauss = trainer.state.gauss
+    rows = gauss.n_gaussians if hasattr(gauss, "n_gaussians") else gauss.capacity
+    paths = trainer.system.renderer.path_counts
+    tags = {("blend_forward", f"C{channels}"), ("blend_backward", f"C{channels}")}
+    for kernel, training in (("project_fwd", (False, True)), ("project_bwd", (True,))):
+        for t in training:
+            if paths.get(("loop", t)):
+                tags.add((kernel, f"1x{rows}"))
+            if paths.get(("batched", t)):
+                tags |= {(kernel, f"{views}x{rows}"), (kernel, "stacked")}
+    return tags
+
+
 def test_sugar_step_on_card_matches_cpu(cuda, tmp_path):
     """Two steps of sugar_static_refine.yaml's stage "sugar" bound to a
     320-face icosphere (6 Gaussians a face, the SuGaR renderer at 7
@@ -1079,7 +1097,7 @@ def test_sugar_step_on_card_matches_cpu(cuda, tmp_path):
     launches = dict(native.LAUNCHES)
     trainers[0].fit()
     assert all(launches[k] > 0 for k in RASTER_KERNELS), launches
-    assert set(by_c) == {("blend_forward", "C7"), ("blend_backward", "C7")}, by_c
+    assert set(by_c) == render_tags(trainers[1], 7, 1), by_c
     rows = [t.metrics_log for t in trainers]
     assert len(rows[0]) == len(rows[1]) == 2
     for row_p, row_c in zip(*rows):
@@ -1128,8 +1146,7 @@ def test_sugar_zero123_yamls_on_card(cuda, tmp_path):
         t = launch.main(["--config", os.path.join(CONFIG_DIR, f"{name}.yaml"), "--train",
                          f"exp_root_dir={tmp_path / name}"] + small + extra)
         torch.cuda.synchronize()
-        assert set(native.SHAPE_LAUNCHES) == {("blend_forward", f"C{channels}"),
-                                              ("blend_backward", f"C{channels}")}
+        assert set(native.SHAPE_LAUNCHES) == render_tags(t, channels, 2), native.SHAPE_LAUNCHES
         assert len(t.metrics_log) == 2
         for row in t.metrics_log:
             assert row["n_dropped_pairs"] == 0
@@ -1175,7 +1192,8 @@ def test_sugar_dynamic_yamls_on_card(cuda, tmp_path, yaml):
                      f"system.geometry.surface_mesh_to_bind_path={tmp_path / 'mesh.obj'}",
                      f"exp_root_dir={tmp_path / 'run'}"])
     torch.cuda.synchronize()
-    assert set(native.SHAPE_LAUNCHES) == {("blend_forward", "C7"), ("blend_backward", "C7")}
+    views = t.cfg.data["random_camera"]["batch_size"]
+    assert set(native.SHAPE_LAUNCHES) == render_tags(t, 7, views), native.SHAPE_LAUNCHES
     assert all(native.LAUNCHES[k] > 0 for k in RASTER_KERNELS)
     assert len(t.metrics_log) == 2 and t.state.gauss.n_faces == n_faces
     for row in t.metrics_log:
@@ -1239,6 +1257,93 @@ def test_blend_kernels_on_timed_sugar_view(cuda, tmp_path):
     native.reset_launches()
     check_blend_kernels(inp["pair_feats"], inp["bins"].tile_ranges, inp["g_out"], inp["dims"])
     assert native.SHAPE_LAUNCHES == {("blend_forward", "C7"): 2, ("blend_backward", "C7"): 2}
+
+
+@pytest.mark.parametrize("case", ["gs4d", "sd", "mv"])
+def test_project_kernel_matches_twin(cuda, case):
+    """K7 against its plain twins on the card at a cell's shape
+    (``PROJECT_SHAPES``: 651,024 rows, 4,096 alive, at one 256^2 view and
+    at 4 x 512^2 stacked; 131,024 at 4 x 256^2): the counts, masks, rects,
+    radii, visibility and sort keys bit for bit, the floats within 1e-6 of
+    each column's largest, the gradients within 1e-5 of each one's largest
+    and exactly zero on dead rows; one launch each way, tagged."""
+    rows, live, b, size = PROJECT_SHAPES[case]
+    native.reset_launches()
+    got = project_vs_twin(cuda, case, seed=rows + b)
+    assert got["exact"] == got["dead"] == got["nonfinite"] == 0, got
+    assert got["floats"] <= 1e-6 and got["grads"] <= 1e-5, got
+    assert 0 < got["masked"] <= got["visible"] <= b * live and got["pairs"] > 0, got
+    tag = f"{b}x{rows}"
+    for k in ("project_fwd", "project_bwd"):
+        assert native.LAUNCHES[k] == native.SHAPE_LAUNCHES[(k, tag)] == 1, k
+        assert native.SHAPE_LAUNCHES.get((k, "stacked"), 0) == (1 if b > 1 else 0), k
+
+
+def test_project_kernel_isotropic_rotation_gradient_is_zero(cuda):
+    """An isotropic Gaussian's covariance does not depend on its rotation:
+    at the identity rotation every field starts from, K7's quaternion
+    gradient is exactly zero, as autograd's through the plain path is (a
+    rounding asymmetry would leave noise that Adam turns into whole
+    steps); the other gradients stay the twin's."""
+    from threestudio_3dgs_tpu_torch.ops.rasterizer import project as k7
+
+    rows, live, b, size = 20_000, 4_096, 1, 256
+    scene = project_scene(cuda, rows, live, b, size, seed=5)
+    scales = scene["scales"][:, :1].repeat(1, 3).contiguous()
+    quats = torch.zeros_like(scene["quats"])
+    quats[:, 0] = 1.0
+    views = k7.ProjectViews(tuple(scene["cams"]), 32, 1.0)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    grads = [torch.randn(shape, generator=gen, device=cuda)
+             for shape in ((rows, 2), (rows,), (rows, 3))]
+    bwd = (scene["means"], scales, quats, scene["alive"], views, *grads, False)
+    got = k7.project_bwd_cuda(*bwd)
+    want = k7.project_bwd_torch(*bwd)
+    assert not got[2].any() and not want[2].any()
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+        assert bool(g[:, :live].any())
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["one_view", "batched"])
+def test_rasterize_through_project_matches_plain_on_card(cuda, batched, monkeypatch):
+    """``rasterize`` / ``rasterize_batched`` (4 x 128^2) through K7 against
+    the path before it (``project_gaussians`` under autograd and the plain
+    row pass) on the card: the pairs and every output bit for bit,
+    gradients within 1e-4 of each one's largest; one K7 launch each way
+    per render."""
+    from threestudio_3dgs_tpu_torch.ops.rasterizer import api, rasterize_batched
+    from threestudio_3dgs_tpu_torch.ops.rasterizer.project import project_plain
+
+    scene = make_scene(cuda, n=3000, size=128, seed=11)
+    cams = ring_cameras(cuda, 4 if batched else 1, 128)
+    names = ("means", "scales", "quats", "opac", "colors")
+    cfg = RasterizeConfig(tile_size=16, max_pairs=1 << 18)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(api, "project", project_plain)
+        leaves = [scene[k].detach().clone().requires_grad_(True) for k in names]
+        offset = torch.zeros((len(cams), 3000, 2) if batched else (3000, 2), device=cuda,
+                             requires_grad=True)
+        native.reset_launches()
+        kw = dict(colors=leaves[4], means2d_offset=offset, config=cfg)
+        if batched:
+            out = rasterize_batched(*leaves[:4], cams, torch.zeros(3, device=cuda), **kw)
+        else:
+            out = rasterize(*leaves[:4], cams[0], torch.zeros(3, device=cuda), **kw)
+        loss = (out["image"] ** 2).sum() + out["alpha"].sum() + out["depth"].sum()
+        grads = torch.autograd.grad(loss, leaves + [offset])
+        runs.append((out, grads, dict(native.LAUNCHES)))
+        monkeypatch.undo()
+    (out_k, g_k, launches), (out_p, g_p, plain_launches) = runs
+    assert launches["project_fwd"] == launches["project_bwd"] == 1, launches
+    assert plain_launches["project_fwd"] == plain_launches["project_bwd"] == 0
+    assert out_k["n_pairs"] == out_p["n_pairs"] > 0 and out_k["n_dropped"] == 0
+    for name in ("image", "alpha", "depth", "radii", "visibility"):
+        assert torch.equal(out_k[name], out_p[name]), name
+    for gk, gp in zip(g_k, g_p):
+        assert float((gk - gp).abs().max()) <= 1e-4 * float(gp.abs().max())
 
 
 def band_renders(scene, device, ts, n_bands):

@@ -57,6 +57,8 @@ PARENTS = {
     "system/update": {"fit/train_step"}, "system/densify": {"fit/train_step"},
     "render/timed": {"system/render"}, "guidance/unet": {"system/guidance"},
     "guidance/encode": {"system/guidance"}, "system/motion_reg": {"system/loss"},
+    # a render's projection, and its hand backward inside render/backward
+    "render/project": {"system/render", "render/backward"},
 }
 # the spans a kind of step has no occasion to open: the steps here guide
 # with the fake or analytic guidances (no UNet, no encode), and only the 4D
@@ -247,13 +249,15 @@ def test_one_host_read_span_per_device_read(tmp_path, batched):
 
 def test_render_backward_runs_in_autograd_nodes(tmp_path):
     """Each ``render/backward`` span lies inside the autograd engine's run
-    of the blend's or the pair gather's node, on that node's thread."""
+    of the blend's, the pair gather's or the projection's node, on that
+    node's thread."""
     spans, nodes, _ = traced_fit(config("gaussian_splatting"), OVERRIDES, tmp_path, steps=1)
     backward = [s for s in spans if s[0] == "render/backward"]
-    assert len(backward) == 2 * 2  # 2 views: the blend's and the gather's
+    assert len(backward) == 2 * 3  # 2 views: the blend's, the gather's and the projection's
     for _, _, tid, ts, end in backward:
         assert any(n["tid"] == tid and float(n["ts"]) <= ts and end <= float(n["ts"]) + n["dur"]
-                   and n["name"].endswith(("BlendBackward", "PairGatherBackward"))
+                   and n["name"].endswith(("BlendBackward", "PairGatherBackward",
+                                           "ProjectBackward"))
                    for n in nodes)
 
 

@@ -41,12 +41,41 @@ LIBRARIES = {
     # exact float reachability test: no fused multiply-add contraction
     "expand": ("expand.cu", ["-fmad=false"]),
     "flash_attention": ("flash_attention.cu", []),
+    # the plain version's float rounding, op by op: no fused multiply-add
+    "project": ("project.cu", ["-fmad=false"]),
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+
+# K7's (csrc/project.cu) argument structs, passed by value
+_PROJECT_ROWS = ("means3d", "scales", "quats", "opac", "alive", "offset")
+
+
+class ProjectInputs(ctypes.Structure):
+    # pointers, then each one's stride between views in elements
+    _fields_ = [(name, _P) for name in _PROJECT_ROWS] + [(name + "_vs", _LL) for name in _PROJECT_ROWS]
+
+
+class ProjectOutputs(ctypes.Structure):
+    _fields_ = [(name, _P) for name in ("means2d", "depths", "conics", "radii", "tiles_min",
+                                        "tiles_max", "visible", "rect", "counts", "sort_key",
+                                        "cull")]
+
+
+class ProjectGrads(ctypes.Structure):
+    _fields_ = [(name, _P) for name in ("d_means2d", "d_conics", "d_depths", "means3d",
+                                        "scales", "quats", "offset")]
+
+
+class ProjectShape(ctypes.Structure):
+    _fields_ = [("n", _LL)] + [(name, _I) for name in (
+        "width", "height", "tile_size", "grid_x", "grid_y", "view_grid_y")] + [
+        ("modifier", _F)]
+
+
 SIGNATURES = {
     "blend_forward": ("blend", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "blend_backward": ("blend", [_P] * 9 + [_LL, _I, _I, _I, _I, _I, _P]),
@@ -54,6 +83,8 @@ SIGNATURES = {
     "expand_bin": ("expand", [_P] * 8 + [_LL, _LL, _I, _I, _I, _I, _P]),
     "expand_slots": ("expand", [_P, _P, _LL, _LL, _P]),
     "flash_attention_forward": ("flash_attention", [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
+    "project_fwd": ("project", [ProjectInputs, _P, ProjectShape, _I, ProjectOutputs, _P]),
+    "project_bwd": ("project", [ProjectInputs, _P, ProjectShape, _I, ProjectGrads, _P]),
 }
 
 # launches per kernel entry point; reset with reset_launches()

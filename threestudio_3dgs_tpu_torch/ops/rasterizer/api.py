@@ -2,7 +2,8 @@
 ``ops/rasterizer/api.py``: ``RasterizeConfig``, ``rasterize``,
 ``rasterize_batched`` and ``_raster_core``).
 
-Pipeline: project (torch autograd) -> bin (index math, no gradient) ->
+Pipeline: project (``Project``: kernel K7 and its hand backward; the row
+fields the binning reads come with it) -> bin (index math, no gradient) ->
 gather per-pair features (``pair_gather``; its backward is the sort plus
 segmented-sum reduction) -> blend (``torch.autograd.Function`` over the
 K1/K2 kernels) -> assemble channels and composite the background.  One
@@ -36,7 +37,8 @@ from ...utils.tracing import span
 from ..camera import Camera
 from . import blend as blend_ops
 from .binning import bin_gaussians, pair_gather
-from .preprocess import Projected, project_gaussians, sh_colors
+from .preprocess import Projected, sh_colors
+from .project import project
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,14 +71,15 @@ class Blend(torch.autograd.Function):
 
 
 def _raster_core(proj, opacities, channels, grid_x, grid_y, tile_size, max_pairs,
-                 height, width, view_grid_y=0):
+                 height, width, view_grid_y=0, rows=None):
     """Everything after projection: bin -> per-pair features -> blend ->
     image assembly, over a flat scene of M Gaussians on a (grid_y, grid_x)
     tile grid: one view, or (``view_grid_y`` > 0) B views' Gaussians, M =
-    B * N, on the grid of the views stacked as tile rows."""
+    B * N, on the grid of the views stacked as tile rows.  ``rows``: the
+    binning's row fields as K7 wrote them (None: the plain row pass)."""
     n_channels = channels.shape[1]
     binning = bin_gaussians(proj, grid_x, grid_y, max_pairs, tile_size, opacities,
-                            view_grid_y)
+                            view_grid_y, rows)
     feats = torch.cat(
         [proj.means2d, proj.conics, opacities[:, None], channels], dim=1
     )  # (M, 6 + C)
@@ -143,14 +146,14 @@ def rasterize(
     grid_x = (width + ts - 1) // ts
     grid_y = (height + ts - 1) // ts
 
-    proj = project_gaussians(
-        means3d, scales, quats, camera, tile_size=ts,
+    proj, rows = project(
+        means3d, scales, quats, opacities, [camera], ts,
         scaling_modifier=scaling_modifier, alive=alive, means2d_offset=means2d_offset,
     )
-    if tile_band is not None:
+    if tile_band is not None:  # the clipped rects take the plain row pass
         row0, grid_y = int(tile_band[0]), int(tile_band[1])
         height = grid_y * ts
-        proj = band_projection(proj, row0, grid_y, ts)
+        proj, rows = band_projection(proj, row0, grid_y, ts), None
     if colors is None:
         if sh_coeffs is None:
             raise ValueError("provide colors or sh_coeffs")
@@ -164,7 +167,8 @@ def rasterize(
     n_channels = channels.shape[1]
 
     img_full, binning = _raster_core(
-        proj, opacities, channels, grid_x, grid_y, ts, config.max_pairs, height, width
+        proj, opacities, channels, grid_x, grid_y, ts, config.max_pairs, height, width,
+        rows=rows,
     )
     rgb = img_full[..., :3]
     alpha = img_full[..., n_channels]
@@ -249,20 +253,16 @@ def rasterize_batched(
     n = means3d.shape[-2]
     view_h = grid_y * ts  # a view's stride in the stacked image's rows
 
-    projs, chans_v, opac_v = [], [], []
-    for v, cam in enumerate(cameras):
+    for cam in cameras:
         assert cam.height == height and cam.width == width, \
             "rasterize_batched requires equal view sizes"
+    proj_flat, rows = project(
+        means3d, scales, quats, opacities, cameras, ts, scaling_modifier=scaling_modifier,
+        alive=alive, means2d_offset=means2d_offset,
+    )
+    chans_v, opac_v = [], []
+    for v, cam in enumerate(cameras):
         m_v = _per_view(means3d, 2, v)
-        proj = project_gaussians(
-            m_v, _per_view(scales, 2, v), _per_view(quats, 2, v), cam, tile_size=ts,
-            scaling_modifier=scaling_modifier, alive=_per_view(alive, 1, v),
-            means2d_offset=None if means2d_offset is None else means2d_offset[v],
-        )
-        shift = torch.tensor([0, v * grid_y], dtype=proj.tiles_min.dtype,
-                             device=proj.tiles_min.device)
-        projs.append(proj._replace(tiles_min=proj.tiles_min + shift,
-                                   tiles_max=proj.tiles_max + shift))
         opac_v.append(_per_view(opacities, 1, v))
         if colors is not None:
             col_v = _per_view(colors, 2, v)
@@ -272,17 +272,16 @@ def rasterize_batched(
             col_v = sh_colors(m_v, _per_view(sh_coeffs, 3, v), cam.campos, sh_degree)
         chans = [col_v]
         if with_depth:
-            chans.append(proj.depths[:, None])
+            chans.append(proj_flat.depths[v * n:(v + 1) * n, None])
         if extra_features is not None:
             chans.append(_per_view(extra_features, 2, v))
         chans_v.append(torch.cat(chans, dim=1))
 
-    proj_flat = Projected(*(torch.cat(leaves, dim=0) for leaves in zip(*projs)))
     channels = torch.cat(chans_v, dim=0)  # (B * N, C)
     n_channels = channels.shape[1]
     img_full, binning = _raster_core(
         proj_flat, torch.cat(opac_v, dim=0), channels, grid_x, b * grid_y, ts,
-        config.max_pairs, b * view_h, width, view_grid_y=grid_y,
+        config.max_pairs, b * view_h, width, view_grid_y=grid_y, rows=rows,
     )  # (B * view_h, W, C + 1)
     img = img_full.reshape(b, view_h, width, n_channels + 1)[:, :height]
 

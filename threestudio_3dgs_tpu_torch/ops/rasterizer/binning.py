@@ -6,7 +6,9 @@ Port of the unpacked path of the JAX package's
 ``ops/rasterizer/binning.py``:
 
   1. exact reachability bitmask for rects of <= MASK_K tiles (counts become
-     exact; bigger rects keep area counts and are culled per pair);
+     exact; bigger rects keep area counts and are culled per pair): the
+     row fields, which kernel K7 writes with the projection on the card
+     (``project.py``) and ``row_fields`` computes otherwise;
   2. one stable depth sort of the Gaussians, zero-count Gaussians at +inf;
   3. pair buffers sized from the exact total each frame (one host read),
      with ``max_pairs`` as the ceiling beyond which the deepest pairs drop;
@@ -34,7 +36,7 @@ the segmented sum (kernel K3) over the per-Gaussian pair counts.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -82,19 +84,23 @@ class Binning(NamedTuple):
     view_grid_y: int = 0  # tile rows a view, on a grid of stacked views
 
 
-def plan_pairs(
-    proj: Projected,
-    grid_x: int,
-    grid_y: int,
-    max_pairs: int,
-    tile_size: int,
-    opacities: torch.Tensor,  # (N,) activated
-    view_grid_y: int = 0,
-) -> PairPlan:
-    """Pairs whose Gaussian cannot reach alpha >= 1/255 inside the tile are
-    culled: the blend would zero them anyway (same threshold)."""
+class RowFields(NamedTuple):
+    """The binning's per-Gaussian rows of one view (or of B stacked views):
+    what K4 reads and what the depth sort and the pair count take."""
+
+    rect: torch.Tensor  # (N, 4) int32 [x0, y0, w, mask or MASK_NONE] (``pack_rect``)
+    counts: torch.Tensor  # (N,) int64 exact pairs per Gaussian
+    sort_key: torch.Tensor  # (N,) f32 depth, +inf for a Gaussian with no pairs
+    cull_fields: torch.Tensor  # (N, 6) f32 [mx, my, ca, cb, cc, opa]
+
+
+def row_fields(proj: Projected, tile_size: int, opacities: torch.Tensor,
+               view_grid_y: int = 0) -> RowFields:
+    """The plain row pass (K7's twin for these fields, ``rasterize`` on the
+    CPU, and the tile-band path everywhere).  Pairs whose Gaussian cannot
+    reach alpha >= 1/255 inside the tile are culled: the blend would zero
+    them anyway (same threshold)."""
     device = proj.depths.device
-    n = proj.depths.shape[0]
     means2d = proj.means2d.detach()
     conics = proj.conics.detach()
     opa = opacities.detach()
@@ -121,13 +127,36 @@ def plan_pairs(
     small = proj.visible & (counts_all <= MASK_K)
     counts_all = torch.where(small, reach.sum(dim=1), counts_all)
     mask = torch.where(small, mask, torch.full_like(mask, MASK_NONE))
-
-    # one stable depth sort; fully culled Gaussians (count 0) go last
-    sort_depth = torch.where(
+    # fully culled Gaussians (count 0) sort last
+    sort_key = torch.where(
         counts_all > 0, proj.depths.detach(), torch.full_like(proj.depths, float("inf"))
     )
-    depth_order = torch.sort(sort_depth, stable=True).indices
-    counts = counts_all[depth_order]
+    return RowFields(
+        rect=pack_rect(tmin[:, 0], tmin[:, 1], rect_w, mask),
+        counts=counts_all,
+        sort_key=sort_key,
+        cull_fields=torch.cat([means2d, conics, opa[:, None]], dim=1).contiguous(),
+    )
+
+
+def plan_pairs(
+    proj: Projected,
+    grid_x: int,
+    grid_y: int,
+    max_pairs: int,
+    tile_size: int,
+    opacities: torch.Tensor,  # (N,) activated
+    view_grid_y: int = 0,
+    rows: Optional[RowFields] = None,
+) -> PairPlan:
+    """The pair layout from the row fields: ``rows`` as K7 wrote them, or
+    (None) the plain row pass over ``proj``."""
+    if rows is None:
+        rows = row_fields(proj, tile_size, opacities, view_grid_y)
+    n = rows.counts.shape[0]
+    # one stable depth sort; fully culled Gaussians (count 0) go last
+    depth_order = torch.sort(rows.sort_key, stable=True).indices
+    counts = rows.counts[depth_order]
     cs = torch.cumsum(counts, dim=0)
     offsets = cs - counts
     total = host_read(cs[-1], "render/host_read") if n else 0  # sizes the buffers
@@ -136,8 +165,8 @@ def plan_pairs(
         offsets=offsets,
         kept=torch.minimum(counts, torch.clamp_min(n_pairs - offsets, 0)),
         depth_order=depth_order,
-        rect=pack_rect(tmin[:, 0], tmin[:, 1], rect_w, mask),
-        cull_fields=torch.cat([means2d, conics, opa[:, None]], dim=1).contiguous(),
+        rect=rows.rect,
+        cull_fields=rows.cull_fields,
         n_pairs=n_pairs,
         n_dropped=total - n_pairs,
         grid_x=grid_x,
@@ -155,8 +184,9 @@ def bin_gaussians(
     tile_size: int,
     opacities: torch.Tensor,  # (N,) activated
     view_grid_y: int = 0,
+    rows: Optional[RowFields] = None,
 ) -> Binning:
-    plan = plan_pairs(proj, grid_x, grid_y, max_pairs, tile_size, opacities, view_grid_y)
+    plan = plan_pairs(proj, grid_x, grid_y, max_pairs, tile_size, opacities, view_grid_y, rows)
     _, gauss, _, key = plan.expand()
     # stable, so the culled pairs past the last tile keep expand order
     sorted_key, order = torch.sort(key, stable=True)

@@ -2,7 +2,9 @@
 projection, conic/radius computation, tile-rect extents, SH colour.
 
 Port of the JAX package's ``ops/rasterizer/preprocess.py`` as plain torch
-under autograd (the JAX package autodiffs this stage too).  Semantics of
+under autograd (the JAX package autodiffs this stage too); ``rasterize``
+runs it as kernel K7 with a hand backward (``project.py``), whose twin and
+reference it is.  Semantics of
 the CUDA ``preprocessCUDA`` stage: view-space cull at z <= 0.2, Jacobian
 clamp at 1.3 * tan(fov/2), 0.3-pixel low-pass dilation, radius =
 ceil(3 sqrt(max eigenvalue)) with the discriminant clamped at 0.1, and
@@ -22,8 +24,12 @@ from ..sh import eval_sh_color
 
 
 def _cov3d_entries(scales, quats, modifier):
-    """Upper-triangular entries of Sigma = R diag(s^2) R^T."""
-    q = quats / torch.clamp_min(torch.linalg.norm(quats, dim=-1, keepdim=True), 1e-12)
+    """Upper-triangular entries of Sigma = R diag(s^2) R^T.  The norm is
+    summed term by term, as K7 (``csrc/project.cu``) sums it, and clamped
+    squared (1e-24 = (1e-12)^2) so that a zero quaternion's gradient is 0."""
+    qw, qx, qy, qz = quats.unbind(-1)
+    sq = qw * qw + qx * qx + qy * qy + qz * qz
+    q = quats / torch.sqrt(torch.clamp_min(sq, 1e-24))[..., None]
     w, x, y, z = q.unbind(-1)
     r00 = 1 - 2 * (y * y + z * z)
     r01 = 2 * (x * y - w * z)
@@ -57,6 +63,16 @@ class Projected(NamedTuple):
 
 def _f32(x) -> float:
     return float(np.float32(x))
+
+
+def camera_scalars(camera: Camera):
+    """(focal_x, focal_y, lim_x, lim_y) of the EWA Jacobian, rounded through
+    float32 as the JAX package computes them."""
+    tanfx = np.float32(camera.tanfovx)
+    tanfy = np.float32(camera.tanfovy)
+    return (_f32(np.float32(camera.width) / (np.float32(2.0) * tanfx)),
+            _f32(np.float32(camera.height) / (np.float32(2.0) * tanfy)),
+            _f32(np.float32(1.3) * tanfx), _f32(np.float32(1.3) * tanfy))
 
 
 def project_gaussians(
@@ -103,12 +119,7 @@ def project_gaussians(
         means2d = means2d + means2d_offset * (sizes * 0.5)
 
     s00, s01, s02, s11, s12, s22 = _cov3d_entries(scales, quats, scaling_modifier)
-    tanfx = np.float32(camera.tanfovx)
-    tanfy = np.float32(camera.tanfovy)
-    focal_x = _f32(np.float32(width) / (np.float32(2.0) * tanfx))
-    focal_y = _f32(np.float32(height) / (np.float32(2.0) * tanfy))
-    limx = _f32(np.float32(1.3) * tanfx)
-    limy = _f32(np.float32(1.3) * tanfy)
+    focal_x, focal_y, limx, limy = camera_scalars(camera)
     tx = torch.clamp(p_view_x / safe_depth, -limx, limx) * safe_depth
     ty = torch.clamp(p_view_y / safe_depth, -limy, limy) * safe_depth
     tz = safe_depth

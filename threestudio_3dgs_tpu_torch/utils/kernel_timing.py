@@ -1,6 +1,6 @@
-"""K1-K6 (``csrc/blend.cu``, ``csrc/segsum.cu``, ``csrc/expand.cu``,
-``csrc/flash_attention.cu``) of one tree of the port, timed alone on the
-card, for comparing two trees in turns on one card:
+"""K1-K7 (``csrc/blend.cu``, ``csrc/segsum.cu``, ``csrc/expand.cu``,
+``csrc/flash_attention.cu``, ``csrc/project.cu``) of one tree of the port,
+timed alone on the card, for comparing two trees in turns on one card:
 
     PYTHONPATH=TREE python3 threestudio_3dgs_tpu_torch/utils/kernel_timing.py [--iters 50]
 
@@ -14,6 +14,11 @@ and one view of ``gaussian_splatting.yaml``'s initial field (the config's
 seed, ``train_batch(0)``'s first camera, tile 32), each with a standard
 normal cotangent of the blend output (seeded); K3's rows are the pair
 gradients K2 makes from it, as a backward sorts them.
+
+K7 (``project_fwd_cuda`` / ``project_bwd_cuda``) at the three cells'
+shapes of ``profiling.PROJECT_SHAPES`` (651,024 rows of which 4,096 live
+at one 256^2 view and at 4 x 512^2; 131,024 at 4 x 256^2), beside the
+plain path it replaced (skipped, and said so, for a tree without K7).
 
 K6 (``expand_slots_cuda``) at the bench scene's depth-ordered pair
 offsets (max_pairs the pair total rounded up to 512), beside
@@ -199,6 +204,62 @@ def kernel_calls(inp):
     }
 
 
+# K7's bytes a row (csrc/project.cu): every row reads its mean and alive
+# flag and writes every output; a live row also reads its scale, quaternion
+# and opacity (forward) or its scale, quaternion and six upstream gradients
+# (backward)
+PROJECT_ROW_BYTES = {"project_fwd": (13 + 97, 32), "project_bwd": (13 + 40, 52)}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def project_rows(iters: int) -> Dict[str, Dict[str, float]]:
+    """K7's forward and backward at the cells' shapes (``PROJECT_SHAPES``),
+    each beside the plain path it replaced on the card (``plain_ms``, the
+    wrapper time of the forward twin, ``project_gaussians`` and the plain
+    row pass a view, or of autograd's backward through it), with the bound
+    by bytes.  A tree without K7 gives nothing."""
+    try:
+        from threestudio_3dgs_tpu_torch.ops.rasterizer import project as k7
+        from threestudio_3dgs_tpu_torch.utils.profiling import PROJECT_SHAPES, project_scene
+    except ImportError as e:
+        print(f"K7: not in this tree ({e})", flush=True)
+        return {}
+
+    out = {}
+    for name, (rows, live, b, size) in PROJECT_SHAPES.items():
+        sc = project_scene("cuda", rows, live, b, size)
+        views = k7.ProjectViews(tuple(sc["cams"]), 32, 1.0)
+        gen = torch.Generator(device="cuda").manual_seed(rows + b)
+        grads = [torch.randn(shape, generator=gen, device="cuda")
+                 for shape in ((b * rows, 2), (b * rows,), (b * rows, 3))]
+        args = (sc["opac"], sc["alive"], None, views)
+        with torch.no_grad():
+            # the wrapper's time with the camera table's build, as a render
+            # makes it; the device's, of the kernel alone
+            fwd = dict(ms=wrapper_ms(lambda: k7.project_fwd_cuda(
+                sc["means"], sc["scales"], sc["quats"], *args[:3],
+                k7.ProjectViews(views.cameras, 32, 1.0)), iters),
+                device_ms=graph_ms(lambda: k7.project_fwd_cuda(
+                    sc["means"], sc["scales"], sc["quats"], *args), iters))
+            bwd = time_call(lambda: k7.project_bwd_cuda(
+                sc["means"], sc["scales"], sc["quats"], sc["alive"], views, *grads, False), iters)
+            fwd["plain_ms"] = wrapper_ms(lambda: k7.project_fwd_torch(
+                sc["means"], sc["scales"], sc["quats"], *args), iters)
+        leaves = [sc[k].detach().clone().requires_grad_(True) for k in ("means", "scales", "quats")]
+        proj, _ = k7.project_fwd_torch(*leaves, *args)
+        loss = (proj.means2d * grads[0]).sum() + (proj.depths * grads[1]).sum() \
+            + (proj.conics * grads[2]).sum()
+        bwd["plain_ms"] = wrapper_ms(lambda: torch.autograd.grad(loss, leaves, retain_graph=True),
+                                     iters)
+        for kernel, row in (("project_fwd", fwd), ("project_bwd", bwd)):
+            every, live_only = PROJECT_ROW_BYTES[kernel]
+            row["bound_ms"] = b * (rows * every + live * live_only) / HBM_BYTES_PER_S * 1e3
+            out[f"{kernel}@{name}"] = row
+        del sc, grads, leaves, proj, loss
+        torch.cuda.empty_cache()
+    return out
+
+
 def rising_errors(fa, bh: int, n: int, seed: int) -> Dict[str, float]:
     """Largest |K5 - plain twin|, |K5 - float64| and |plain twin - float64|
     at f32 inputs with keys in rising norm (``k5_inputs(..., rising=True)``);
@@ -252,6 +313,9 @@ def main(argv=None):
         result["inputs"][name] = row
         del inp
         torch.cuda.empty_cache()
+    for tag, row in project_rows(args.iters).items():
+        kernel, shape = tag.split("@")
+        result["inputs"].setdefault(f"k7_{shape}", {})[kernel] = row
     # K5 at the UNet's two self-attention shapes, beside SDPA
     import torch.nn.functional as F
 

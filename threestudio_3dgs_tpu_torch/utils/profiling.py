@@ -138,6 +138,94 @@ def render_step(scene: Dict[str, object]) -> Callable[[], tuple]:
 RASTER_KERNELS = ("blend_forward", "blend_backward", "segsum_monotone", "expand_bin")
 RASTER_SYMBOLS = dict(zip(RASTER_KERNELS, ("blend_fwd_kernel", "blend_bwd_kernel",
                                            "segsum_kernel", "expand_kernel")))
+# the projection's kernel pair (K7), the same way
+PROJECT_KERNELS = ("project_fwd", "project_bwd")
+PROJECT_SYMBOLS = dict(zip(PROJECT_KERNELS, ("project_fwd_kernel", "project_bwd_kernel")))
+# the hand kernels' families in a device trace, by symbol (first match wins);
+# ``benchmark/trace.py`` keeps its own copy, where K7 falls under "other"
+FAMILIES = [
+    ("K1 blend forward", r"blend_fwd_kernel"),
+    ("K2 blend backward", r"blend_bwd_kernel"),
+    ("K3 segmented sum", r"segsum_kernel"),
+    ("K4 expand", r"expand_kernel"),
+    ("K5 flash attention", r"flash_fwd_(wgmma|split)|split_planes"),
+    ("K7 project", r"project_(fwd|bwd)_kernel"),
+]
+
+# K7's inputs at the cells' shapes: (field rows, live rows, views, view size);
+# the live rows come first, as the trainer's capacity layout keeps them
+PROJECT_SHAPES = {
+    "gs4d": (651_024, 4_096, 1, 256),  # gs4d.motion: a view of the per-view loop
+    "sd": (651_024, 4_096, 4, 512),  # sd21.t2i: the single pass over 4 views
+    "mv": (131_024, 4_096, 4, 256),  # mvdream.t2i
+}
+
+
+def project_scene(device, rows: int, live: int, views: int, size: int,
+                  seed: int = 0) -> Dict[str, Any]:
+    """A field of ``rows`` rows whose first ``live`` are alive (Gaussians in
+    a ball, 1-4 tiles across at tile 32), ``views`` cameras of ``size``^2 on
+    a ring around it: ``project``'s inputs by name, and ``cams``."""
+    from ..ops import camera as cam_ops
+
+    rng = np.random.default_rng(seed)
+    arrays = dict(
+        means=rng.normal(size=(rows, 3)).astype(np.float32) * 0.35,
+        scales=np.exp(rng.normal(size=(rows, 3)).astype(np.float32) * 0.3 - 3.5),
+        quats=rng.normal(size=(rows, 4)).astype(np.float32),
+        opac=rng.uniform(0.05, 0.95, size=(rows,)).astype(np.float32),
+    )
+    scene: Dict[str, Any] = {k: torch.as_tensor(a, device=device) for k, a in arrays.items()}
+    scene["alive"] = torch.arange(rows, device=device) < live
+    scene["cams"] = [cam_ops.camera_from_c2w(
+        lookat_c2w([2.5 * np.sin(2 * np.pi * v / views), -2.5 * np.cos(2 * np.pi * v / views),
+                    0.3 + 0.1 * v]), 0.9, 0.9, size, size, device=device) for v in range(views)]
+    return scene
+
+
+def project_vs_twin(device, case: str, seed: int) -> Dict[str, float]:
+    """K7 (``project_fwd_cuda`` / ``project_bwd_cuda``) against its plain
+    twins at ``PROJECT_SHAPES[case]``, with a means2d offset and standard
+    normal upstream gradients drawn from ``seed``: ``exact``, the elements
+    of the integer outputs, counts and sort keys that differ; ``floats``,
+    the largest gap of means2d, depths, conics and cull fields over each
+    column's largest; ``grads``, of each gradient over its largest;
+    ``dead``, the nonzero gradients of dead rows; ``nonfinite``, of every
+    gradient; and the rows ``visible`` and ``masked`` and the ``pairs``."""
+    from ..ops.rasterizer import project as k7
+    from ..ops.rasterizer.expand import MASK_NONE
+
+    rows, live, b, size = PROJECT_SHAPES[case]
+    scene = project_scene(device, rows, live, b, size, seed=seed)
+    views = k7.ProjectViews(tuple(scene["cams"]), 32, 1.0)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    offset = torch.randn((b, rows, 2) if b > 1 else (rows, 2), generator=gen, device=device)
+    args = (scene["means"], scene["scales"], scene["quats"], scene["opac"], scene["alive"],
+            offset * 0.01)
+    with torch.no_grad():
+        (got_p, got_r), (want_p, want_r) = (fn(*args, views) for fn in (
+            k7.project_fwd_cuda, k7.project_fwd_torch))
+    exact = sum(int((got != want).sum()) for got, want in (
+        *((getattr(got_p, k), getattr(want_p, k)) for k in ("radii", "tiles_min", "tiles_max",
+                                                             "visible")),
+        *((getattr(got_r, k), getattr(want_r, k)) for k in ("rect", "counts", "sort_key"))))
+    floats = max(float(((got - want).abs().amax(0) / want.abs().amax(0).clamp_min(1e-30)).max())
+                 for got, want in ((got_p.means2d, want_p.means2d),
+                                   (got_p.depths[:, None], want_p.depths[:, None]),
+                                   (got_p.conics, want_p.conics),
+                                   (got_r.cull_fields, want_r.cull_fields)))
+    upstream = [torch.randn(shape, generator=gen, device=device)
+                for shape in ((b * rows, 2), (b * rows,), (b * rows, 3))]
+    bwd = (scene["means"], scene["scales"], scene["quats"], scene["alive"], views, *upstream,
+           True)
+    got_g, want_g = k7.project_bwd_cuda(*bwd), k7.project_bwd_torch(*bwd)
+    return dict(
+        exact=exact, floats=floats,
+        grads=max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got_g, want_g)),
+        dead=sum(int(g[:, live:].count_nonzero()) for g in got_g),
+        nonfinite=sum(int((~torch.isfinite(g)).sum()) for g in got_g),
+        visible=int(got_p.visible.sum()), masked=int((got_r.rect[:, 3] != MASK_NONE).sum()),
+        pairs=int(got_r.counts.sum()))
 
 
 def k5_inputs(bh: int, n: int, dtype: torch.dtype, seed: int, device="cuda",

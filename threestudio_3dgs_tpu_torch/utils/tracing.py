@@ -35,9 +35,12 @@ The spans, by where they are opened:
                             a batch: one span an evaluation)
   ``systems/gaussian_4dgen`` system/motion_reg (the motion stage's anchor,
                             lite ARAP and inter-frame losses)
-  ``ops/rasterizer``        render/backward (the hand backward of the blend
-                            and the pair gather, on autograd's thread),
-                            render/host_read (the binning's pair total)
+  ``ops/rasterizer``        render/project (a render's projection, K7, and
+                            inside render/backward its hand backward),
+                            render/backward (the hand backward of the
+                            projection, the blend and the pair gather, on
+                            autograd's thread), render/host_read (the
+                            binning's pair total)
   ``models/gaussian_field`` system/host_read (the live-row count)
 """
 
@@ -51,7 +54,7 @@ SPANS = (
     "fit/data", "data/rays", "fit/train_step", "fit/host_read", "fit/log", "fit/validate",
     "fit/checkpoint", "system/loss", "system/render", "render/backward", "render/host_read",
     "system/guidance", "system/backward", "system/host_read", "system/update", "system/densify",
-    "render/timed", "guidance/unet", "guidance/encode", "system/motion_reg",
+    "render/timed", "guidance/unet", "guidance/encode", "system/motion_reg", "render/project",
 )
 _NO_SPAN = contextlib.nullcontext()
 
