@@ -430,22 +430,43 @@ def test_gaussian_variants_batched_match_jax(variant):
     assert np.asarray(jout["n_pairs"]).tolist() == pout["n_pairs"].tolist()
 
 
+def seeded_scene(rtype):
+    """(renderer, state, batch, neural background params) of ``rtype``'s
+    scene, the kernel background inverted at invert_bg_prob 0.5: the
+    shading YAML's for a Gaussian variant, gs4d_motion's for the spacetime
+    renderer, ``sugar_pair``'s for a SuGaR renderer."""
+    if rtype == "diff-gaussian-rasterizer-spacetime":
+        _, psys, _, state, batch = spacetime_scene()
+        r, bg_params = psys.renderer, None
+    elif rtype.startswith("diff-sugar-rasterizer-"):
+        _, psys, _, state, _, batch = sugar_pair(rtype.endswith("-temporal"))
+        r, bg_params = psys.renderer, None
+    else:
+        pair = make_pair(rtype, extra=SMALL)
+        r, state, batch = pair.psys.renderer, pair.pstate.gauss, pair.batch
+        bg_params = pair.pstate.extra_params.get("background")
+    r.cfg.invert_bg_prob = 0.5
+    return r, state, batch, bg_params
+
+
 @pytest.mark.parametrize("rtype", ["diff-gaussian-rasterizer-advanced",
-                                   "diff-gaussian-rasterizer-shading"])
+                                   "diff-gaussian-rasterizer-shading",
+                                   "diff-gaussian-rasterizer-spacetime",
+                                   "diff-sugar-rasterizer-normal",
+                                   "diff-sugar-rasterizer-temporal"])
 def test_batched_render_equals_loop_under_one_seed(rtype):
-    """The port's single pass against its own per-view loop, the draws (the
-    kernel background's inversion at invert_bg_prob 0.5, the neural
-    background's and the material's) from generators of one seed: every
-    output equal bit for bit and the generators left in one state."""
-    pair = make_pair(rtype, extra=SMALL + ["system.renderer.invert_bg_prob=0.5"])
-    r = pair.psys.renderer
+    """The port's single pass against its own per-view loop (the views in
+    groups of one), the draws (the kernel background's inversion at
+    invert_bg_prob 0.5, the neural background's and the material's) from
+    generators of one seed: every output equal bit for bit and the
+    generators left in one state, for each renderer family."""
+    r, state, batch, bg_params = seeded_scene(rtype)
     outs, states = [], []
     for batched in (True, False):
         r.cfg.batched = batched
         gen = torch.Generator().manual_seed(5)
         r.path_counts.clear()
-        outs.append(r.batch_forward(pair.pstate.gauss, pair.batch,
-                                    bg_params=pair.pstate.extra_params.get("background"),
+        outs.append(r.batch_forward(state, batch, bg_params=bg_params,
                                     generator=gen, training=True))
         assert r.path_counts == {("batched" if batched else "loop", True): 1}
         states.append(gen.get_state())
@@ -464,20 +485,17 @@ SPACETIME_SCENE = ["data.height=32", "data.width=32", "data.random_camera.height
                    "system.renderer.adaptive_max_pairs=false"]
 
 
-def test_spacetime_renderer_batched_matches_jax():
-    """gs4d_motion's spacetime renderer with batched=true in both packages:
-    the three reference frames (each at its own timestamp) in one pass,
-    outputs to 2e-5, gradients into every trained field to 1e-4 relative
-    (test_torch_spacetime's bounds)."""
-    from test_torch_renderers import rel_l2
-
+def spacetime_scene():
+    """gs4d_motion's system in both packages on SPACETIME_SCENE, the JAX
+    initial state with random temporal rows, scaling and rotation, in each
+    package's form, and one training batch (three reference frames):
+    (jsys, psys, jgauss, pgauss, batch)."""
     config = "gs4d_motion"
     jcfg = jax_load_config(f"{ROOT}/threestudio_3dgs_tpu/configs/{config}.yaml", SPACETIME_SCENE)
     pcfg = load_config(f"{ROOT}/threestudio_3dgs_tpu_torch/configs/{config}.yaml",
                        SPACETIME_SCENE)
     jsys = jfind(jcfg.system_type)(jcfg.system)
     psys = pfind(pcfg.system_type)(pcfg.system, device="cpu")
-    spy = PathSpy(jsys.renderer)  # counts the one trace
     init = jax.device_get(jsys.init_state(0).gauss)
     rnd = random_spacetime_params(15, 320, 4)
     random_rows = pst.TEMPORAL_FIELDS + ("scaling", "rotation")
@@ -487,6 +505,18 @@ def test_spacetime_renderer_batched_matches_jax():
                                                         for k, v in params.items()}))
     pgauss = gaussian_state_from_numpy(jax.device_get(jgauss), "cpu")
     batch = pfind(pcfg.data_type)(pcfg.data, seed=0).train_batch(0)
+    return jsys, psys, jgauss, pgauss, batch
+
+
+def test_spacetime_renderer_batched_matches_jax():
+    """gs4d_motion's spacetime renderer with batched=true in both packages:
+    the three reference frames (each at its own timestamp) in one pass,
+    outputs to 2e-5, gradients into every trained field to 1e-4 relative
+    (test_torch_spacetime's bounds)."""
+    from test_torch_renderers import rel_l2
+
+    jsys, psys, jgauss, pgauss, batch = spacetime_scene()
+    spy = PathSpy(jsys.renderer)  # counts the one trace
     keys = ("comp_rgb", "comp_depth", "comp_mask")
     rng = np.random.default_rng(16)
     weights = {k: f32(rng.normal(size=(3, 32, 32, 3 if k == "comp_rgb" else 1))) for k in keys}
@@ -505,7 +535,7 @@ def test_spacetime_renderer_batched_matches_jax():
     for k in keys:
         np.testing.assert_allclose(pout[k].detach().numpy(), np.asarray(jout[k]), rtol=0,
                                    atol=2e-5, err_msg=k)
-    alive = np.asarray(init.alive)
+    alive = np.asarray(jgauss.alive)
     for k in ("xyz", "features_dc", "scaling", "rotation", "opacity", "motion", "omega"):
         want = np.asarray(getattr(jg, k))[alive]
         assert np.abs(want).max() > 0, k

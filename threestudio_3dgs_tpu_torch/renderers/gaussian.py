@@ -1,17 +1,21 @@
 """Static Gaussian renderer and its variants (port of the JAX package's
-``renderers/gaussian.py``: ``GaussianRendererBase`` with the per-view loop,
+``renderers/gaussian.py``: ``GaussianRendererBase``,
 ``diff-gaussian-rasterizer`` and its ``-advanced``, ``-background``,
 ``-normal`` and ``-shading`` variants).
 
-The batch is rendered view by view, or in one pass of the rasterizer
-(``rasterize_batched``: the views stacked as tile rows of one grid, one
-pair capacity of B x the per-view capacity shared by all) where the JAX
-package's gate takes that path: ``batched`` on, B > 1, a per-view
-capacity of at most ``batched_max_pairs`` and a pair pool the JAX
-package's packed sort key can hold (``_batched_key_fits``).  The per-view
-capacity is ``max_pairs``, or the system's adaptive capacity
-(``max_pairs_override``, systems/base.py) when it sets one.  Every variant
-blends rgb and depth in one pass (C = 4) and post-processes each view:
+A batch renders in groups of views, each group in one pass of the
+rasterizer (``rasterize_batched``: the group's views stacked as tile rows
+of one grid, one pair capacity of len(group) x the per-view capacity
+shared by all).  The JAX package's gate decides the grouping: the whole
+batch is one group where ``batched`` is on, B > 1, the per-view capacity
+is at most ``batched_max_pairs`` and the JAX package's packed sort key can
+hold the pair pool (``_batched_key_fits``); else each view is a group of
+its own.  So the gate decides which capacity drops pairs and what n_pairs
+reports, not how a view is rendered.  The per-view capacity is
+``max_pairs``, or the system's adaptive capacity (``max_pairs_override``,
+systems/base.py) when it sets one.  A renderer states its scene arguments
+for a group in ``_batched_attrs``.  Every variant blends rgb and depth in
+one pass (C = 4) and post-processes each view:
 
   * ``-advanced``: depth and alpha mask;
   * ``-background``: the kernel background is zero and the neural
@@ -29,17 +33,19 @@ Output keys mirror the reference batch renderer: comp_rgb (B, H, W, 3),
 comp_depth, comp_mask (B, H, W, 1), comp_normal, comp_pred_normal,
 comp_rgb_bg (B, H, W, 3)
 where the variant has them, the per-view stacked radii / visibility_filter
-and the per-view pair counts n_pairs / n_dropped (on the single pass each
-view's share of the totals, rounded up, as the JAX package reports them).
+and the per-view pair counts n_pairs / n_dropped (each view's share of
+its group's totals, rounded up, as the JAX package reports them).
 
 Draws (the kernel background's inversion, the neural background's
 augmentation, the material's) come from the step's generator, view by view
-in that order on either path; the test-only ``draws`` keyword (one dict per
-view) feeds them in instead, and so do a batch's ``view_draws/<name>``
+in that order however the views are grouped; the test-only ``draws``
+keyword (one dict per view) feeds them in instead, and so do a batch's
+``view_draws/<name>``
 entries (``batch_view_draws``: the whole camera batch's draws, taken in the
 same order, which the data-parallel step shards with the cameras so that a
 view's draws do not depend on the rank that renders it).  A renderer's
-``path_counts`` counts the path each of its ``batch_forward`` calls took.
+``path_counts`` counts the gate's decision for each of its
+``batch_forward`` calls: "batched" (one group) or "loop" (groups of one).
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ import torch
 from ..models import gaussian_field as gf
 from ..ops import camera as cam_ops
 from ..ops.image import depth_to_normal, normalize_vec
-from ..ops.rasterizer import RasterizeConfig, rasterize, rasterize_batched
+from ..ops.rasterizer import RasterizeConfig, rasterize_batched
 from ..utils.config import parse_structured
 from ..utils.draws import uniforms
 from ..utils.registry import register
@@ -71,10 +77,16 @@ class RendererConfig:
     adaptive_max_pairs: bool = False
     min_pairs: int = 256 * 1024
     # the camera batch in one pass of the rasterizer where the gate in
-    # batch_forward allows it, else the per-view loop
+    # batch_forward allows it, else one pass a view
     batched: bool = True
     # the largest per-view capacity the single pass takes
     batched_max_pairs: int = 256 * 1024
+
+
+def stack_group(arrays: List[torch.Tensor]) -> torch.Tensor:
+    """A group's per-view arrays stacked on a leading view axis; a group of
+    one gives its view's array as it is."""
+    return torch.stack(arrays) if len(arrays) > 1 else arrays[0]
 
 
 def _view_tensor(batch, key: str, i: int, device) -> Optional[torch.Tensor]:
@@ -112,8 +124,10 @@ class GaussianRendererBase:
         self.material = material
         self.background = background
         # (path, training) -> batch_forward calls that took it; path
-        # "batched" or "loop"
+        # "batched" (one group of views) or "loop" (groups of one)
         self.path_counts: Dict[Tuple[str, bool], int] = {}
+        # device -> back_ground_color as an f32 tensor there
+        self._base_bgs: Dict[str, torch.Tensor] = {}
 
     @property
     def pair_capacity(self) -> int:
@@ -133,7 +147,8 @@ class GaussianRendererBase:
         return pair_bits + int(num_tiles).bit_length() <= 31
 
     def use_batched(self, bs: int, height: int, width: int) -> bool:
-        """The JAX package's gate of the single-pass batched render."""
+        """The JAX package's gate of the single-pass batched render: true
+        renders the batch as one group of views, false a view at a time."""
         cap = self.pair_capacity
         return (self.cfg.batched and bs > 1 and cap <= self.cfg.batched_max_pairs
                 and self._batched_key_fits(bs, cap, height, width))
@@ -169,9 +184,12 @@ class GaussianRendererBase:
         (composited outside the kernel); else training inverts it when a
         uniform draw exceeds invert_bg_prob, and eval always inverts
         (reference quirk)."""
-        base_bg = torch.tensor(self.cfg.back_ground_color, dtype=torch.float32, device=device)
         if self.with_background:
             return torch.zeros(3, device=device)
+        base_bg = self._base_bgs.get(str(device))
+        if base_bg is None:
+            base_bg = self._base_bgs[str(device)] = torch.tensor(
+                self.cfg.back_ground_color, dtype=torch.float32, device=device)
         if training and (generator is not None or draws):
             draw = uniforms(draws, "invert_bg", 1, generator, device)
             return torch.where(draw > self.cfg.invert_bg_prob, 1.0 - base_bg, base_bg)
@@ -238,59 +256,6 @@ class GaussianRendererBase:
             result["render"] = torch.clamp(comp, 0.0, 1.0)
         return result
 
-    def render_one(
-        self,
-        gauss: gf.GaussianState,
-        camera: cam_ops.Camera,
-        *,
-        bg_params=None,
-        rays_o=None,
-        rays_d=None,
-        light_positions=None,
-        generator: Optional[torch.Generator] = None,
-        ambient_only: bool = False,
-        training: bool = False,
-        color_clip: float = float("inf"),
-        means2d_offset: Optional[torch.Tensor] = None,
-        override_color: Optional[torch.Tensor] = None,
-        scaling_modifier: float = 1.0,
-        ambient_ratio=None,
-        shading: Optional[str] = None,
-        draws: Optional[Dict[str, Any]] = None,
-    ) -> Dict[str, Any]:
-        cfg = self.cfg
-        geo = self.geometry
-        params = gauss.params
-        device = params.xyz.device
-        kernel_bg = self._kernel_bg(generator, training, device, draws)
-        sh_coeffs = None
-        colors = override_color
-        if colors is None:
-            sh_coeffs = gf.get_features(params, color_clip)
-        # pred_normal: the per-Gaussian normal as 3 extra channels (C = 7)
-        extra = params.normal if self.with_normal else None
-        out = rasterize(
-            params.xyz,
-            gf.get_scaling(params, geo.cfg.sphere if geo is not None else False),
-            params.rotation,
-            gf.get_opacity(params)[:, 0],
-            camera,
-            kernel_bg,
-            colors=colors,
-            sh_coeffs=sh_coeffs,
-            sh_degree=geo.active_sh_degree if geo is not None else 0,
-            extra_features=extra,
-            alive=gauss.alive,
-            means2d_offset=means2d_offset,
-            scaling_modifier=scaling_modifier,
-            config=RasterizeConfig(tile_size=cfg.tile_size, max_pairs=self.pair_capacity),
-        )
-        return self._post_view(
-            out, bg_params=bg_params, rays_o=rays_o, rays_d=rays_d,
-            light_positions=light_positions, generator=generator, ambient_only=ambient_only,
-            training=training, ambient_ratio=ambient_ratio, shading=shading, draws=draws,
-        )
-
     def batch_forward(
         self,
         gauss: gf.GaussianState,
@@ -343,34 +308,27 @@ class GaussianRendererBase:
             ))
         path = "batched" if self.use_batched(bs, height, width) else "loop"
         self.path_counts[(path, training)] = self.path_counts.get((path, training), 0) + 1
+        # (views, their means2d_offset): the whole batch with the tensor as it
+        # is (a slice's backward would allocate zeros of its full size), or
+        # view i with its (N, 2) rows
         if path == "batched":
-            attrs = self._batched_attrs(gauss, times, color_clip, override_color,
-                                        deformation_params, knots)
-            return self._batch_forward_batched(cameras, views, attrs, means2d_offset)
+            groups = [(slice(0, bs), means2d_offset)]
+        else:
+            groups = [(slice(i, i + 1), None if means2d_offset is None else means2d_offset[i])
+                      for i in range(bs)]
         per_view = []
-        for i, camera in enumerate(cameras):
-            temporal = {}
-            if self.temporal:
-                temporal = dict(times[i], deformation_params=deformation_params, knots=knots)
-            per_view.append(
-                self.render_one(
-                    gauss,
-                    camera,
-                    color_clip=color_clip,
-                    means2d_offset=None if means2d_offset is None else means2d_offset[i],
-                    override_color=override_color,
-                    **views[i],
-                    **temporal,
-                )
-            )
+        for g, offset in groups:
+            attrs = self._batched_attrs(gauss, times[g], color_clip, override_color,
+                                        deformation_params, knots)
+            per_view += self._render_group(cameras[g], views[g], attrs, offset)
         return self._stack_views(per_view)
 
     def _batched_attrs(self, gauss, times, color_clip, override_color, deformation_params,
                        knots) -> Dict[str, Any]:
-        """``rasterize_batched``'s scene arguments: the static field's, as
-        ``render_one`` passes them.  Renderers with per-view attributes
-        (the timed fields) override it; ``times`` holds each view's
-        timestamp and frame index."""
+        """``rasterize_batched``'s scene arguments for a group of views:
+        the static field's, shared by the views.  Renderers with per-view
+        attributes (the timed fields) override it; ``times`` holds each of
+        the group's views' timestamp and frame index."""
         geo = self.geometry
         params = gauss.params
         sh_coeffs = None
@@ -389,20 +347,21 @@ class GaussianRendererBase:
             alive=gauss.alive,
         )
 
-    def _batch_forward_batched(self, cameras, views, attrs, means2d_offset) -> Dict[str, Any]:
-        """One rasterizer pass for the whole batch over one shared pool of
-        B x the per-view capacity; per-view n_pairs / n_dropped are each
-        view's share of the totals, rounded up (so the controller sees the
-        pool's demand and any drop).  The kernel background is composited
-        per view after the pass, where the loop draws it: the pass draws
-        nothing, so the generator's draws come in the loop's order (each
-        view's kernel background, then its post-processing's) and the two
-        paths give the same numbers under one seed."""
+    def _render_group(self, cameras, views, attrs, means2d_offset) -> List[Dict[str, Any]]:
+        """One rasterizer pass for a group of views over one shared pool of
+        len(group) x the per-view capacity, then each view's post-processing;
+        per-view n_pairs / n_dropped are each view's share of the totals,
+        rounded up (so the controller sees the pool's demand and any drop;
+        a group of one reports the view's own).  The kernel background is
+        composited per view after the pass: the pass draws nothing, so the
+        generator's draws come view by view (the kernel background's, then
+        the post-processing's) however the views are grouped, and the
+        groupings give the same numbers under one seed."""
         bs = len(cameras)
         device = cameras[0].campos.device
         out = rasterize_batched(
             cameras=cameras,
-            bg_color=torch.zeros(3, device=device),
+            bg_color=None,  # each view's is composited below
             means2d_offset=means2d_offset,
             with_depth=True,
             config=RasterizeConfig(tile_size=self.cfg.tile_size,
@@ -411,23 +370,22 @@ class GaussianRendererBase:
         )
         n_pairs_v = -(-out["n_pairs"] // bs)
         n_dropped_v = -(-out["n_dropped"] // bs)
+        # each view's arrays: one unbind a key, whose backward stacks the
+        # views' gradients (a select's would zero-fill the group's a view);
+        # a group of one squeezes, whose backward is a view
+        arrays = {k: out[k].unbind(0) if bs > 1 else (out[k].squeeze(0),)
+                  for k in ("image", "alpha", "depth", "radii", "visibility", "extra")
+                  if k in out}
         per_view = []
         for i, view in enumerate(views):
             kernel_bg = self._kernel_bg(view["generator"], view["training"], device,
                                         view["draws"])
-            view_out = {
-                "image": out["image"][i] + (1.0 - out["alpha"][i][..., None]) * kernel_bg,
-                "alpha": out["alpha"][i],
-                "depth": out["depth"][i],
-                "radii": out["radii"][i],
-                "visibility": out["visibility"][i],
-                "n_pairs": n_pairs_v,
-                "n_dropped": n_dropped_v,
-            }
-            if "extra" in out:
-                view_out["extra"] = out["extra"][i]
+            view_out = {k: a[i] for k, a in arrays.items()}
+            alpha = view_out["alpha"][..., None]
+            view_out["image"] = view_out["image"] + (1.0 - alpha) * kernel_bg
+            view_out.update(n_pairs=n_pairs_v, n_dropped=n_dropped_v)
             per_view.append(self._post_view(view_out, **view))
-        return self._stack_views(per_view)
+        return per_view
 
     @staticmethod
     def state_device(gauss) -> torch.device:

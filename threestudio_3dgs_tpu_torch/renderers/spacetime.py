@@ -7,21 +7,18 @@ index (polynomial, per-frame, deformation or spline motion; see
 with depth and the alpha mask.  A view without a timestamp renders at t = 0,
 frame 0.  In spline mode the knots are computed once per batch (they do not
 depend on the view).  Each view's evaluation, and a batch's knots, runs in
-a ``render/timed`` span, so a trace counts the evaluations.  The batch
-renders view by view or, under the Gaussian renderers' gate, in one pass of
-the rasterizer with each view's timed attributes stacked to (B, N, ...)."""
+a ``render/timed`` span, so a trace counts the evaluations.  The views
+render in the Gaussian renderers' groups (the whole batch, or a view at a
+time, as their gate decides), each view's timed attributes stacked to
+(B, N, ...) for a group of B > 1."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
-import torch
-
-from ..ops import camera as cam_ops
-from ..ops.rasterizer import RasterizeConfig, rasterize
 from ..utils.registry import register
 from ..utils.tracing import span
-from .gaussian import GaussianRendererBase
+from .gaussian import GaussianRendererBase, stack_group
 
 
 @register("diff-gaussian-rasterizer-spacetime")
@@ -49,58 +46,18 @@ class DiffGaussianRasterizerSpacetime(GaussianRendererBase):
     def _batched_attrs(self, gauss, times, color_clip, override_color, deformation_params,
                        knots) -> Dict[str, Any]:
         """Each view's timed attributes (one ``get_timed_all`` a view at
-        its timestamp and frame index) stacked to (B, N, ...)."""
+        its timestamp and frame index) stacked to (B, N, ...); the
+        precomputed colours SH2RGB(f_dc), or ``override_color``."""
         timed = [self._timed(gauss, t["timestamp"], t["frame_idx"], deformation_params, knots)
                  for t in times]
         means3d, scales, rotations, opacity, colors = (list(a) for a in zip(*timed))
         if override_color is not None:
             colors = [override_color] * len(times)
         return dict(
-            means3d=torch.stack(means3d),
-            scales=torch.stack(scales),
-            quats=torch.stack(rotations),
-            opacities=torch.stack(opacity)[..., 0],
-            colors=torch.stack(colors),
+            means3d=stack_group(means3d),
+            scales=stack_group(scales),
+            quats=stack_group(rotations),
+            opacities=stack_group(opacity)[..., 0],
+            colors=stack_group(colors),
             alive=gauss.alive,
         )
-
-    def render_one(
-        self,
-        gauss,
-        camera: cam_ops.Camera,
-        *,
-        generator: Optional[torch.Generator] = None,
-        training: bool = False,
-        means2d_offset: Optional[torch.Tensor] = None,
-        override_color: Optional[torch.Tensor] = None,
-        scaling_modifier: float = 1.0,
-        draws: Optional[Dict[str, Any]] = None,
-        timestamp=None,
-        frame_idx=None,
-        deformation_params=None,
-        knots=None,
-        **unused,
-    ) -> Dict[str, Any]:
-        """``unused``: the static renderers' channel arguments (background,
-        rays, lights, shading, color_clip), which this renderer has no use
-        for."""
-        device = gauss.params.xyz.device
-        kernel_bg = self._kernel_bg(generator, training, device, draws)
-        means3d, scales, rotations, opacity, colors = self._timed(
-            gauss, timestamp, frame_idx, deformation_params, knots)
-        if override_color is not None:
-            colors = override_color
-        out = rasterize(
-            means3d, scales, rotations, opacity[:, 0], camera, kernel_bg, colors=colors,
-            alive=gauss.alive, means2d_offset=means2d_offset, scaling_modifier=scaling_modifier,
-            config=RasterizeConfig(tile_size=self.cfg.tile_size, max_pairs=self.pair_capacity),
-        )
-        return {
-            "render": torch.clamp(out["image"], 0.0, 1.0),
-            "radii": out["radii"],
-            "visibility_filter": out["visibility"],
-            "n_dropped": out["n_dropped"],
-            "n_pairs": out["n_pairs"],
-            "mask": out["alpha"],
-            "depth": out["depth"],
-        }

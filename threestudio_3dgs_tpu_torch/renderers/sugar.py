@@ -1,10 +1,11 @@
 """SuGaR renderers (port of the JAX package's ``renderers/sugar.py``:
 ``diff-sugar-rasterizer-normal`` and ``diff-sugar-rasterizer-shading``).
 
-The geometry's mesh-bound Gaussians are rendered view by view, or in one
-pass of the rasterizer under the Gaussian renderers' gate; one blend pass
-carries rgb, the view depth and the Gaussians' face normals as extra
-channels, C = 7 (K1/K2 at 7 channels on the card).  Per view:
+The geometry's mesh-bound Gaussians are rendered in the Gaussian
+renderers' groups of views (the whole batch in one pass of the rasterizer,
+or a view at a time, as their gate decides); one blend pass carries rgb,
+the view depth and the Gaussians' face normals as extra channels, C = 7
+(K1/K2 at 7 channels on the card).  Per view:
 
   * ``normal`` = clip(-extra * 0.5 + 0.5): the splatted face normals, the
     sign flipped to the reference's camera convention;
@@ -18,8 +19,8 @@ The kernel background follows the Gaussian renderers' rule (inverted on a
 draw in training, always at eval).  ``diff-sugar-rasterizer-temporal``
 renders the dynamic SuGaR geometry (``models/dynamic_sugar.py``) at each
 view's timestamp and frame index (0 and 0 where the batch has none), with
-the deformation network's parameters in mode "deformation"; on the single
-pass each view's timed arrays are stacked to (B, N, ...)."""
+the deformation network's parameters in mode "deformation"; a group of
+B > 1 views has each view's timed arrays stacked to (B, N, ...)."""
 
 from __future__ import annotations
 
@@ -27,11 +28,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..ops import camera as cam_ops
 from ..ops.image import depth_to_normal, normalize_vec
-from ..ops.rasterizer import RasterizeConfig, rasterize
 from ..utils.registry import register
-from .gaussian import GaussianRendererBase
+from .gaussian import GaussianRendererBase, stack_group
 
 
 class SuGaRRendererBase(GaussianRendererBase):
@@ -55,7 +54,7 @@ class SuGaRRendererBase(GaussianRendererBase):
         if self.temporal:
             per_view = [self.view_arrays(sugar_state, color_clip, t["timestamp"],
                                          t["frame_idx"], deformation_params) for t in times]
-            arrays = {k: torch.stack([a[k] for a in per_view]) for k in per_view[0]}
+            arrays = {k: stack_group([a[k] for a in per_view]) for k in per_view[0]}
         else:
             arrays = self.view_arrays(sugar_state, color_clip)
         return dict(
@@ -99,35 +98,6 @@ class SuGaRRendererBase(GaussianRendererBase):
                 result["comp_rgb_bg"] = bg_color
             result["render"] = torch.clamp(comp, 0.0, 1.0)
         return result
-
-    def render_one(self, sugar_state, camera: cam_ops.Camera, *, bg_params=None, rays_o=None,
-                   rays_d=None, light_positions=None,
-                   generator: Optional[torch.Generator] = None, ambient_only: bool = False,
-                   training: bool = False, color_clip: float = float("inf"),
-                   means2d_offset: Optional[torch.Tensor] = None, override_color=None,
-                   scaling_modifier: float = 1.0, ambient_ratio=None,
-                   shading: Optional[str] = None,
-                   draws: Optional[Dict[str, Any]] = None, timestamp=None, frame_idx=None,
-                   deformation_params=None, knots=None) -> Dict[str, Any]:
-        """``timestamp``, ``frame_idx``, ``deformation_params``: the temporal
-        renderer's (``knots`` is the spacetime renderer's and unused)."""
-        geo = self.geometry
-        device = self.state_device(sugar_state)
-        kernel_bg = self._kernel_bg(generator, training, device, draws)
-        arrays = self.view_arrays(sugar_state, color_clip, timestamp, frame_idx,
-                                  deformation_params)
-        out = rasterize(
-            arrays["means3d"], arrays["scales"], arrays["quats"], arrays["opacities"], camera,
-            kernel_bg, sh_coeffs=arrays["sh_coeffs"], sh_degree=geo.active_sh_degree,
-            extra_features=arrays["normals"], means2d_offset=means2d_offset,
-            scaling_modifier=scaling_modifier, with_depth=True,
-            config=RasterizeConfig(tile_size=self.cfg.tile_size, max_pairs=self.pair_capacity),
-        )
-        return self._post_view(
-            out, bg_params=bg_params, rays_o=rays_o, rays_d=rays_d,
-            light_positions=light_positions, generator=generator, ambient_only=ambient_only,
-            training=training, ambient_ratio=ambient_ratio, shading=shading, draws=draws,
-        )
 
 
 @register("diff-sugar-rasterizer-normal")

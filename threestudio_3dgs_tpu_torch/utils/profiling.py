@@ -155,7 +155,7 @@ FAMILIES = [
 # K7's inputs at the cells' shapes: (field rows, live rows, views, view size);
 # the live rows come first, as the trainer's capacity layout keeps them
 PROJECT_SHAPES = {
-    "gs4d": (651_024, 4_096, 1, 256),  # gs4d.motion: a view of the per-view loop
+    "gs4d": (651_024, 4_096, 1, 256),  # gs4d.motion: one view a pass (groups of one)
     "sd": (651_024, 4_096, 4, 512),  # sd21.t2i: the single pass over 4 views
     "mv": (131_024, 4_096, 4, 256),  # mvdream.t2i
 }
